@@ -828,7 +828,7 @@ def guard_output_files(argv: list[str]):
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     if not argv or argv[0] in ("-h", "--help", "help"):
-        print("bbtools_tpu — TPU-native sequence analysis toolkit")
+        print("bbtools_tpu — accelerator-native sequence analysis toolkit")
         print("usage: python -m bbtools_tpu <tool> key=value ...")
         print("tools:", ", ".join(sorted(set(TOOLS))))
         return 0

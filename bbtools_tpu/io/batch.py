@@ -2,7 +2,7 @@
 
 The reference's unit of inter-thread batching is `ListNum<Read>` (~200
 array-of-struct Read objects, stream/Read.java:99, shared/Shared.java:115).
-The TPU-native equivalent is a fixed-shape SoA batch: padded 2-bit base
+The device-native equivalent is a fixed-shape SoA batch: padded 2-bit base
 codes + phred quals + lengths as device-transferable tensors, with names
 kept host-side. The batch ordinal plays the role of ListNum.id and drives
 ordered output (Appendix A.9 of SURVEY.md).
@@ -113,7 +113,7 @@ class LazyAscii:
     segments gathered into the padded [B, L] matrix only when a consumer
     actually touches `ascii_bases`. Filter/counting paths that never
     re-emit the raw bytes skip the plane fill entirely — the remaining
-    ~15% of full-plane ingest cost (NEXT.md lazy-ascii plan)."""
+    ~15% of full-plane ingest cost."""
 
     __slots__ = ("segs", "L")
 

@@ -3,7 +3,7 @@
 Parity target: stream/FastaReadInputStream.java (record grouping, arbitrary
 line wrap) and dna/FastaToChromArrays2 (reference ingestion). Parsing is
 host-side numpy; references used for indexing are returned as contiguous
-code arrays with scaffold name/offset tables (the TPU analog of
+code arrays with scaffold name/offset tables (the device analog of
 ChromosomeArray, dna/ChromosomeArray.java:15).
 """
 
@@ -67,7 +67,7 @@ def write_fasta(path: str, records, wrap: int = 70):
 class Reference:
     """A loaded reference: all scaffolds concatenated as 2-bit codes.
 
-    TPU-native ChromosomeArray analog: one flat uint8 code array plus
+    Device-native ChromosomeArray analog: one flat uint8 code array plus
     per-scaffold (name, start, length). Scaffolds are separated by a single
     N_CODE sentinel so no k-mer spans two scaffolds.
     """

@@ -3,7 +3,7 @@
 Design parity with fileIO/ReadWrite.java (pigz :819, bgzip :770, samtools
 :583): the reference gets pipeline parallelism by running (de)compression in
 separate processes. We do the same — `pigz`/`gzip` subprocesses when
-available keep the Python process free to parse and feed the TPU — with a
+available keep the Python process free to parse and feed the device — with a
 pure-Python zlib fallback so nothing external is required.
 """
 

@@ -10,7 +10,7 @@ per cell, dense concise layout), ml/Functions.java activations:
 These nets back BBMerge's ML filter, NovaDemux, CallVariants scoring and
 the prok gene caller (SURVEY.md §2 "NN runtime").
 
-TPU-first: a layer is one [out, in] matmul over the whole batch; mixed
+Batched: a layer is one [out, in] matmul over the whole batch; mixed
 per-cell activations inside a layer are computed as a select over the
 (few) activation types present. Training is jax.grad over the same
 forward (the reference hand-rolls backprop in ml/Trainer.java).
@@ -72,11 +72,16 @@ class CellNet:
 
     def forward(self, x):
         """x [B, dims[0]] -> output [B, dims[-1]] (jax)."""
+        import jax
         import jax.numpy as jnp
 
         h = jnp.asarray(x, jnp.float32)
         for W, b, t in zip(self.weights, self.biases, self.types):
-            z = h @ jnp.asarray(W).T + jnp.asarray(b)
+            # full float32: a GPU would otherwise take TF32 and could flip
+            # nn= decisions in bbmerge and callvariants
+            z = jnp.matmul(
+                h, jnp.asarray(W).T, precision=jax.lax.Precision.HIGHEST
+            ) + jnp.asarray(b)
             h = _activations(z, t)
         return h
 
@@ -106,7 +111,8 @@ class CellNet:
         def fwd(p, xin):
             h = xin
             for W, b, t in zip(p["w"], p["b"], types):
-                h = _activations(h @ W.T + b, t)
+                z = jnp.matmul(h, W.T, precision=jax.lax.Precision.HIGHEST)
+                h = _activations(z + b, t)
             return h
 
         def loss(p):

@@ -28,7 +28,7 @@ Reference launchers and mains:
   - microalign.sh -> aligner.MicroWrapper: map reads against a tiny
     reference with the micro index aligner -> SAM.
 
-TPU design: the sweep harnesses batch every pair of a level into one
+Device design: the sweep harnesses batch every pair of a level into one
 device call (ops/idalign.glocal_identity_jnp — log-depth prefix-max
 glocal rows; ops/banded.align_pairs_jnp for long pairs) instead of the
 reference's per-pair thread pools.

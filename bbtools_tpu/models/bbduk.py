@@ -1,6 +1,6 @@
 """BBDuk — k-mer based contaminant filtering/trimming (flagship tool).
 
-TPU-native re-design of bbduk/BBDukS.java (:34 main, process :163) +
+Device-native re-design of bbduk/BBDukS.java (:34 main, process :163) +
 BBDukProcessorS (:740 process, per-pair pipeline :770-1460). The per-read
 Java loops become batched device kernels (ops/bbduk_scan.py, ops/trim.py)
 over SoA ReadBatch tensors; the host orchestrates stage order, applies
@@ -31,9 +31,6 @@ from ..io.fastq import FastqReader, FastqWriter
 from ..ops.bbduk_scan import KScanConfig, credit_id, kscan_full, kscan_short
 from ..ops.entropy import EntropyModel
 from ..ops.kmer_index import BucketKmerIndex, build_ref_keys
-from ..ops.lane_index import LaneKmerIndex
-from ..ops.mm_match import MMKmerIndex
-from ..ops.sort_join import SortJoinIndex
 from ..ops.kmers import mid_mask_len_default, middle_mask
 from ..ops.trim import apply_trim, optimal_trim_jnp
 
@@ -170,7 +167,7 @@ class BBDukConfig:
     ordered: bool = True
     ziplevel: int | None = None
     #: multi-chip mode: shard the k-mer table over `tp_shards` devices
-    #: (kmer%WAYS over ICI) with reads data-parallel over the rest;
+    #: (kmer%WAYS across devices) with reads data-parallel over the rest;
     #: 0 = auto (all devices on tp when >1 device and the panel is
     #: bucket-backed), 1 = off
     tp_shards: int = 1
@@ -432,40 +429,6 @@ def load_reference(cfg: BBDukConfig):
     return scaffolds, names
 
 
-def _mm_eligible(cfg: BBDukConfig) -> bool:
-    """Configs the MXU matcher can serve exactly (mm_match docstring):
-    canonical queries (rcomp), no indel balls (edist), no query-side
-    mutation (qhdist), and — when speed>0 — no short-kmer classes (the
-    short-end scans apply no speed gate, so load-side sampling of shorts
-    cannot be reproduced scan-side). TPU only: the matmul needs the MXU
-    (a CPU backend grinds through ~2 TMAC/batch; its gathers are fast —
-    the bucket index is the right CPU fallback)."""
-    import jax
-
-    return (
-        jax.devices()[0].platform == "tpu"
-        and cfg.rcomp
-        and cfg.k <= 31
-        and cfg.edist == 0
-        and (cfg.edist2 or 0) == 0
-        and cfg.qhdist == 0
-        and (cfg.hdist > 0 or (cfg.hdist2 or 0) > 0)
-        and not (cfg.speed > 0 and cfg.use_short_kmers)
-    )
-
-
-def _join_eligible(cfg: BBDukConfig, n_keys: int) -> bool:
-    """Sorted-join backend gate: large expanded panels on TPU (the sort
-    unit is the fast primitive there; on CPU the bucket/np paths win),
-    no query-side mutation (qhdist multiplies the query stream)."""
-    import jax
-
-    return (
-        jax.devices()[0].platform == "tpu"
-        and SortJoinIndex.supports(n_keys, cfg.qhdist)
-    )
-
-
 def build_index(cfg: BBDukConfig, return_keys: bool = False):
     scaffolds, names = load_reference(cfg)
     keys, ids = build_ref_keys(
@@ -479,35 +442,7 @@ def build_index(cfg: BBDukConfig, return_keys: bool = False):
         mid_mask=cfg.mid_mask_bits,
         speed=cfg.speed,
     )
-    index = None
-    if len(keys):
-        # small panels (adapters/artifacts/primers) go to the VMEM
-        # lane-gather index (~6x the HBM row-gather rate on TPU); big
-        # references keep the bucketed HBM table
-        if LaneKmerIndex.supports(len(keys)):
-            index = LaneKmerIndex.build(keys, ids)
-        if index is None and _join_eligible(cfg, len(keys)):
-            # large panels: sorted-join backend — sort-unit streaming
-            # instead of random access (ops/sort_join.py; ~3.5x the MXU
-            # matcher on adapters.fa, tools/exp_sort_join.py)
-            index = SortJoinIndex.build(keys, ids)
-        if index is None and _mm_eligible(cfg):
-            # expansion-heavy panels past the join cap (hdist>=2): the
-            # MXU matcher stores RAW keys (no x~70 hdist expansion) and
-            # resolves the hamming ball inside a one-hot matmul
-            from ..ops.mm_match import MMKmerIndex
-
-            index = MMKmerIndex.build(
-                scaffolds,
-                cfg.k,
-                mink=cfg.mink if cfg.use_short_kmers else 0,
-                hdist=cfg.hdist,
-                hdist2=cfg.hdist2,
-                mid_mask=cfg.mid_mask_bits,
-                rcomp=cfg.rcomp,
-            )
-        if index is None:
-            index = BucketKmerIndex.build(keys, ids, pack=True)
+    index = BucketKmerIndex.build(keys, ids, pack=True) if len(keys) else None
     lengths = [len(s) for s in scaffolds]
     if return_keys:
         return index, names, lengths, keys, ids
@@ -531,38 +466,19 @@ class BBDuk:
         )
         self.trim_e = float(np.float32(phred_to_prob_error(cfg.trimq)))
         mm = cfg.mid_mask_bits if cfg.mask_middle else -1
-        self.scan_cfg = (
-            KScanConfig(
-                k=cfg.k,
-                mink=cfg.mink if cfg.use_short_kmers else 0,
-                minlen2=(cfg.k - cfg.mid_mask_len) // 2 if cfg.mask_middle else cfg.k,
-                mid_mask=mm,
-                restrict_left=cfg.restrict_left,
-                restrict_right=cfg.restrict_right,
-                qhdist=cfg.qhdist,
-                speed=cfg.speed,
-                qskip=cfg.qskip,
-                nb=getattr(self.index, "nb", 64),
-                packed=bool(getattr(self.index, "packed", False)),
-                rcomp=cfg.rcomp,
-                lane=(
-                    self.index.static_params()
-                    if isinstance(self.index, LaneKmerIndex)
-                    else None
-                ),
-                mxu=(
-                    self.index.static_params()
-                    if isinstance(self.index, MMKmerIndex)
-                    else None
-                ),
-                join=(
-                    self.index.static_params()
-                    if isinstance(self.index, SortJoinIndex)
-                    else None
-                ),
-            )
-            if True
-            else None
+        self.scan_cfg = KScanConfig(
+            k=cfg.k,
+            mink=cfg.mink if cfg.use_short_kmers else 0,
+            minlen2=(cfg.k - cfg.mid_mask_len) // 2 if cfg.mask_middle else cfg.k,
+            mid_mask=mm,
+            restrict_left=cfg.restrict_left,
+            restrict_right=cfg.restrict_right,
+            qhdist=cfg.qhdist,
+            speed=cfg.speed,
+            qskip=cfg.qskip,
+            nb=getattr(self.index, "nb", 64),
+            packed=bool(getattr(self.index, "packed", False)),
+            rcomp=cfg.rcomp,
         )
         self.table_dev = self.index.device_arrays() if self.index else None
         self.recalibrator = None
@@ -581,7 +497,7 @@ class BBDuk:
         tp mesh axis (kmer%WAYS, kmer/KmerTableSet.java:273-285) with
         reads data-parallel over dp; every scan combines shard lookups
         with a psum. Outputs are byte-identical to single-device runs
-        (tests/test_sort_join.py CLI equality test)."""
+        (tests/test_multichip.py CLI equality test)."""
         import jax
 
         from ..parallel.mesh import make_mesh
@@ -1439,7 +1355,7 @@ class BBDuk:
         """Multi-host: psum every counter and the per-scaffold hit
         vectors across processes over the global mesh, so stats=/stderr
         report the ONE global answer while each process wrote its own
-        ordered output shard (VERDICT r4 #2; per-host input shards +
+        ordered output shard (per-host input shards +
         collective merges, SURVEY §5.8). Single-process: no-op."""
         import jax
 

@@ -1,4 +1,4 @@
-"""BBMap genome seed index — CSR key->positions, TPU-era layout.
+"""BBMap genome seed index — CSR key->positions, device layout.
 
 Re-design of the reference BBIndex Block (align2/Block.java:18: int[] sites
 + int[] starts per chrom block, built by IndexMaker4) as one flat CSR over

@@ -1,6 +1,6 @@
 """BBMerge — paired-read overlap merging (BASELINE config #4).
 
-TPU-native redesign of jgi/BBMerge.java:52: the per-pair Java scan becomes
+Device-native redesign of jgi/BBMerge.java:52: the per-pair Java scan becomes
 a device scan over all candidate inserts (ops/overlap.py) followed by the
 exact sequential accept/ambiguity state machine vectorized across the
 batch; joining is a batched overlay (ops/join.py).
@@ -21,6 +21,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..core import backend
 from ..core.parser import tokenize
 from ..io.fastq import FastqReader, FastqWriter
 from ..io.batch import ReadBatch
@@ -29,7 +30,7 @@ from ..ops.overlap import (
     calc_min_overlap_by_entropy_np,
     expected_mismatches_np,
     mate_by_overlap_ratio_np,
-    overlap_counts,
+    overlap_counts_jnp,
     probability_np,
 )
 
@@ -219,9 +220,7 @@ class BBMerge:
         bq_rev = _rev_quals(b2)
         # entropy-derived minOverlap (default mode: Tail of r1, Head of r2)
         if self.cfg.use_entropy:
-            from ..ops.overlap_pallas import use_pallas as _dev
-
-            if _dev():
+            if backend.choices().device_merge:
                 from ..ops.overlap import calc_min_overlap_by_entropy_jnp
 
                 a_e = np.asarray(calc_min_overlap_by_entropy_jnp(
@@ -250,8 +249,6 @@ class BBMerge:
         n_inserts = int(
             max(1, (alens + blens).max(initial=0) - p.min_insert0 + 1)
         )
-        from ..ops.overlap_pallas import use_pallas
-
         nn_stats = None
         # quality-weighted scoring is the reference default whenever both
         # reads carry quals (BBMergeOverlapper.java:122)
@@ -260,7 +257,7 @@ class BBMerge:
             and b1.quals is not None
             and b2.quals is not None
         )
-        if use_pallas() and self._overlap_mesh() is None:
+        if backend.choices().device_merge and self._overlap_mesh() is None:
             # fused device pipeline: insert-scan kernel + mate selection
             # in one jit; only [B] winner arrays come back (the [B, D]
             # count matrices never leave the device)
@@ -328,7 +325,7 @@ class BBMerge:
         else:
             good, bad, olen = (
                 np.asarray(x)
-                for x in overlap_counts(
+                for x in overlap_counts_jnp(
                     b1.bases, b_rc, alens, blens, p.min_insert0, n_inserts
                 )
             )
@@ -356,11 +353,9 @@ class BBMerge:
                     p.ratio_offset, good_f=good_f, bad_f=bad_f,
                 )
         # efilter (BBMerge.findOverlap :1532-1536)
-        from ..ops.overlap_pallas import use_pallas as _use_dev
-
         has = (insert > 0) & ~ambig
         if p.efilter_ratio >= 0 and b1.quals is not None and has.any():
-            if _use_dev():
+            if backend.choices().device_merge:
                 from ..ops.overlap import expected_mismatches_jnp
 
                 exp = np.asarray(expected_mismatches_jnp(
@@ -380,7 +375,7 @@ class BBMerge:
             ambig = ambig | kill
             has &= ~kill
         if p.pfilter_ratio > 0 and b1.quals is not None and has.any():
-            if _use_dev():
+            if backend.choices().device_merge:
                 from ..ops.overlap import probability_jnp
 
                 prob = np.asarray(probability_jnp(

@@ -7,7 +7,7 @@ enumeration (start ATG/GTG/TTG, stop TAA/TAG/TGA, NCBI genetic code 11),
 minimum length, per-strand greedy overlap resolution by score
 (length-weighted start-codon preference), GFF3 records, and translated
 protein fasta (`outa=`). The frame-statistics scoring model is a planned
-upgrade (NEXT.md).
+upgrade.
 
 Scan design: per scaffold all three frames are scanned in one vectorized
 pass (codon ids = 16*a + 4*b + c over strided views); ORFs fall out of

@@ -3,7 +3,7 @@
 
 Reads sharing a pivot k-mer (the minimizer of hashed k-mers) sort
 adjacently, which dramatically improves gzip ratios and enables optical/
-PCR-duplicate marking. TPU-era design: pivot hashing is a batched device
+PCR-duplicate marking. Device design: pivot hashing is a batched device
 reduction (min over hashed window k-mers); ordering is one global argsort.
 Optional dedupe=t removes exact duplicates within a clump.
 
@@ -31,7 +31,7 @@ from ..ops.kmers import rolling_kmers_np
 def pivot_kmers(bases: np.ndarray, lengths: np.ndarray, k: int):
     """Per-read pivot: the minimum 64-bit-hashed canonical k-mer.
 
-    Device path (rolling registers + mix + min-reduce on the VPU) for
+    Device path (rolling registers + mix + min-reduce on the device) for
     real batches; numpy fallback for tiny ones where dispatch overhead
     dominates. Both produce identical (pivot, position) pairs."""
     if bases.shape[0] * bases.shape[1] >= 1 << 16:

@@ -304,10 +304,9 @@ class Dedupe:
         """Batch verdicts identical to sequential judge() calls, with the
         banded edit-distance verifications of the whole batch fused into
         ONE device kernel call (ops/banded.banded_edits_jnp) instead of a
-        per-pair host loop — the VERDICT item-8 'call the device kernel'
-        path. Intra-batch candidate pairs (a read matching a read kept
-        earlier in the same batch) fall back to the host check; they are
-        rare and preserve exact sequential semantics."""
+        per-pair host loop. Intra-batch candidate pairs (a read matching a
+        read kept earlier in the same batch) fall back to the host check;
+        they are rare and preserve exact sequential semantics."""
         canon_list = [
             (_canon(c)[0] if self.rcomp else c) for c in codes_list
         ]

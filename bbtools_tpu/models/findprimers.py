@@ -3,7 +3,7 @@ query panel against every read; SAM out (jgi/FindPrimers.java role).
 
 The companion of cutprimers: `msa.sh in=reads ref=primer1.fa out=sam1`
 produces the per-read primer sites cutprimers consumes. Search is the
-same exhaustive VPU window-compare as models/indelfree.py, batched over
+same exhaustive window-compare as models/indelfree.py, batched over
 reads: one [P, B, W] masked-equality reduction per read batch, best
 offset per (read, primer) kept.
 """

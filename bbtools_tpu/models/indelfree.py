@@ -5,11 +5,11 @@ Queries (spacers/primers/probes, held in memory) align to every position
 of streamed reference sequences allowing up to `subs` substitutions and
 NO indels; hits emit SAM records.
 
-TPU-native redesign: the reference builds multi-k seed indexes with
+Device-native redesign: the reference builds multi-k seed indexes with
 pigeonhole minimum-hit calculations (MinHitsCalculator) to prune the
-O(Q*S) search for CPUs. On the TPU the search IS the fast path: sliding
+O(Q*S) search for CPUs. On the device the search IS the fast path: sliding
 windows of the reference (a strided view, no gather) compare against the
-whole query panel in one [Q, S, L] masked-equality reduction on the VPU —
+whole query panel in one [Q, S, L] masked-equality reduction —
 exhaustive, branch-free, and exact, so no seed/prune machinery is needed.
 Work is tiled over reference chunks with static shapes (jit once per
 (panel, chunk) geometry).

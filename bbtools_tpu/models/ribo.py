@@ -16,7 +16,7 @@ References (semantics source, no code reuse):
     (pickBestInner :595 fast path; the BaseGraph consensus refinement
     pass is not reproduced).
 
-TPU note: all alignments run through the batched device glocal kernel
+Device note: all alignments run through the batched device glocal kernel
 (ops/idalign.glocal_identity_jnp) — reads x consensus panel in one
 jitted call per batch, instead of the reference's per-thread
 SingleStateAligner loops.

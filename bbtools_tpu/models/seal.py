@@ -6,7 +6,7 @@ of them (Seal.java keeps id lists per kmer). Here the per-kmer value is an
 int32 COMBO id into a distinct-bitset table (W x 62-bit words per row,
 OR-merged at build) — the one-gather bucket lookup stays unchanged for
 ANY number of reference files, and per-ref votes are bit tests over the
-scan plane (TPU-native: no lists, no extra gathers). Reads are attributed
+scan plane (device-native: no lists, no extra gathers). Reads are attributed
 per `ambig=` (first | all | toss | best; Seal.java:280-291). Outputs
 per-ref read/base counts (refstats format) and optional per-ref FASTQs
 (pattern out=%.fq).

@@ -20,7 +20,7 @@ Reference mains:
   - trnaconsensus.sh -> prok.TrnaConsensusBuilder: majority consensus
     over tRNA sequences.
 
-TPU design: pairwise identities run through the batched device glocal
+Device design: pairwise identities run through the batched device glocal
 kernel (models/ribo._batch_identities -> ops/idalign.glocal_identity_jnp),
 one device call per query row instead of per-pair host loops.
 """

@@ -2,9 +2,9 @@
 
 Compiled on first use with the system compiler into a per-version cache;
 every entry point has a numpy fallback so the framework works without a
-toolchain. This is the TPU framework's analog of the reference's JNI
+toolchain. This is the framework's analog of the reference's JNI
 kernels (jni/, SURVEY.md §2.4) — host-side hot loops in C, device compute
-in XLA/Pallas.
+in XLA and CUDA.
 """
 
 from __future__ import annotations

@@ -1,8 +1,7 @@
 /* LSD radix sort + run-length count for 64-bit k-mer keys.
  *
  * The k-mer spectrum merge (ops/kmer_count.KmerSpectrum) needs sorted
- * (key, count) runs per batch. XLA's TPU sort on int64 measures ~7M
- * keys/s on a v5e (bitonic, emulated 64-bit); this host path does
+ * (key, count) runs per batch on the host; this path does
  * 8-bit-digit LSD passes (skipping constant digits) at >100M keys/s,
  * mirroring the reference's C-accelerated hot loops (jni/ role).
  */

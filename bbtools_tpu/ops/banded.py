@@ -16,7 +16,7 @@ BandedAlignerConcrete.alignForward (:60-160):
     to at least i before the final min (:202, BandedAligner
     penalizeOffCenter)
 
-TPU design: the row loop is a lax.scan over min(qlen,rlen) steps; the
+Device design: the row loop is a lax.scan over min(qlen,rlen) steps; the
 band (W lanes, W = 2*maxEdits+1, static) lives in registers; the
 within-row left-dependency — a prefix min of (cand[j] - j) — is an
 associative scan, so each row is O(log W) depth instead of W. Whole

@@ -21,8 +21,6 @@ import jax.numpy as jnp
 
 from .kmer_index import BucketKmerIndex
 from .kmers import length_mask, rolling_kmers_jnp
-from .lane_index import LaneKmerIndex
-from .mm_match import mm_lookup_jnp
 
 BIG = jnp.int32(999999999)
 
@@ -44,22 +42,10 @@ class KScanConfig:
     nb: int = 64  # bucket count of the BucketKmerIndex (static)
     packed: bool = False  # BucketKmerIndex key48|id16 single-plane layout
     rcomp: bool = True
-    #: LaneKmerIndex static params (nb, groups, slots, rows, salt, packed);
-    #: when set, `table` holds (tlo, thi, tid) and lookups run the VMEM
-    #: lane-gather kernel instead of HBM row-gathers
-    lane: tuple | None = None
-    #: MMKmerIndex static params (k, mink, Kp, Dp); when set, `table`
-    #: holds (keymat, prio) and lookups run the MXU one-hot matmul
-    #: matcher (raw keys, in-kernel hdist) instead of gathers
-    mxu: tuple | None = None
-    #: SortJoinIndex static params (n,); when set, `table` holds
-    #: (sorted_keys, pay) and lookups run the sort+cummax join
-    #: (ops/sort_join.py) — the large-panel TPU backend
-    join: tuple | None = None
     #: >1 when running under shard_map with the bucket table sharded by
     #: key % tp_shards over the 'tp' mesh axis: each device looks up its
     #: own shard and a psum combines (exactly one shard can hit) — the
-    #: kmer%WAYS layout of kmer/KmerTableSet.java:273-285 over ICI
+    #: kmer%WAYS layout of kmer/KmerTableSet.java:273-285 across devices
     tp_shards: int = 0
 
     def resolved_minlen2(self) -> int:
@@ -67,14 +53,6 @@ class KScanConfig:
 
 
 def _lookup(cfg: KScanConfig, table, keys):
-    if cfg.join is not None:
-        from .sort_join import join_lookup_jnp
-
-        return join_lookup_jnp(*table, keys)
-    if cfg.mxu is not None:
-        return mm_lookup_jnp(*table, *cfg.mxu, keys)
-    if cfg.lane is not None:
-        return LaneKmerIndex.lookup_jnp(*table, *cfg.lane, keys)
     keys_tbl, ids_tbl = table
     if cfg.tp_shards > 1:
         # sharded bucket table (inside shard_map): probe the local shard
@@ -227,7 +205,7 @@ def kscan_full(cfg: KScanConfig, table, bases, lengths, bound_start=None,
     nhits = hit.sum(axis=1, dtype=jnp.int32)
     # first/last hit and its id via compare-sum selects: row gathers
     # (ids[arange(B), pos]) run at the ~50M rows/s random-access wall,
-    # a [B, L] masked reduce is pure VPU work
+    # a [B, L] masked reduce is pure elementwise work
     first_pos = jnp.min(jnp.where(hit, i_idx, BIG), axis=1)
     id0 = jnp.where(
         nhits > 0,
@@ -293,7 +271,7 @@ def _kscan_short_fast(cfg: KScanConfig, table, bases, lengths, left: bool):
     else:
         # suffix of length ln ends at the read's last base; masked-sum
         # select instead of a row gather (gathers run at the
-        # random-access wall, a [B, L] reduce is VPU work)
+        # random-access wall, a [B, L] reduce is elementwise work)
         last = jnp.maximum(lengths - 1, 0)[:, None]
         pos_i = jnp.arange(L, dtype=jnp.int32)[None, :]
         at_last = pos_i == last
@@ -309,9 +287,7 @@ def _kscan_short_fast(cfg: KScanConfig, table, bases, lengths, left: bool):
             i_pos = (lengths - ln).astype(jnp.int32)
             live_l.append(i_pos > jnp.maximum(-1, lengths - k) + 1 - 1)
             i_l.append(i_pos)
-    # stack on axis 0: [n_lens, B] keeps the flatten feeding the lane
-    # kernel lane-aligned (a [B, 13] row-major flatten forces a slow
-    # misaligned relayout on TPU — measured 8x the per-tile lookup cost)
+    # stack on axis 0: [n_lens, B], the layout the lookups consume
     keys = jnp.stack(keys_l, axis=0)
     live = jnp.stack(live_l, axis=0)
     pos = jnp.stack(i_l, axis=0)
@@ -423,8 +399,7 @@ def kscan_combined(cfg: KScanConfig, table, bases, lengths,
                    short_left: bool, short_right: bool):
     """Full scan + requested short-end scans in ONE compiled dispatch.
     XLA shares the unpack/rolling-register work across the three scans;
-    one device round-trip per batch instead of three (the round-trip is
-    milliseconds on a remote-dispatch harness)."""
+    one device round-trip per batch instead of three."""
     out = kscan_full(cfg, table, bases, lengths)
     sl = (
         kscan_short(cfg, table, bases, lengths, True)

@@ -1,15 +1,13 @@
 """Count-min sketch k-mer counter — the KCountArray analog, on device.
 
 Memory-bounded approximate counting (bloom/KCountArray7MTA.java:29: atomic
-cell-packed counters with multiple hashes). TPU-era layout: `hashes`
+cell-packed counters with multiple hashes). Device layout: `hashes`
 independent lanes of a power-of-2 `cells` array of int32 counters.
 
 An increment batch pre-aggregates duplicate slots with a bitonic
 sort + stable-partition (the same scatter-free compaction as
 kmer_count.sort_reduce) and then issues ONE donated scatter-add of the
-UNIQUE slots. TPU random-access scatter runs at ~14M updates/s
-(slope-measured on v5e) — the sort costs ~2 ms per million slots, so
-on real sequencing data (coverage-fold duplicate kmers) the scatter
+UNIQUE slots: on real sequencing data (coverage-fold duplicate kmers) the scatter
 shrinks by the dup factor and dominates far less; worst-case unique
 batches pay only the small sort overhead. A query is one gather + min
 over lanes. The host wrapper keeps the table as a device array across

@@ -5,7 +5,7 @@ Reference: align2/GapTools.java. A gap array is an even-length int list
 consecutive pairs are ALIGNED blocks; the space between stop_i and
 start_{i+1} is a giant deletion (an intron-scale ref skip). The
 reference compresses such gaps to GAPC symbols (GAPLEN ref bases each,
-Shared.java:194-204) so its single DP arena can span them; the TPU
+Shared.java:194-204) so its single DP arena can span them; the device
 design instead aligns each anchor block in its own fixed window and
 stitches (models/bbmap.py _stitch_gapped), so here the gap arrays only
 describe sites — no compressed-ref buffer exists to size.

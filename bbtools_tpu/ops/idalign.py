@@ -172,7 +172,7 @@ def glocal_identity_jnp(qs, qlens, rs, rlens):
     """Batched device glocal aligner: (identity f32, rstart, rstop) [T].
 
     Same recurrences and tie rules as glocal_align_np, restructured for
-    the TPU: the sequential left-gap relaxation
+    the device: the sequential left-gap relaxation
         row[j] = max(best[j-1], row[j-1] + GAP)
     is the prefix maximum of G[t] = best[t-1] - GAP*t (ties -> latest t),
     computed with a log-depth associative scan, so each DP row is pure
@@ -456,7 +456,7 @@ class CrossCutIDAligner:
     """Anti-diagonal ("cross-cut") exact glocal aligner
     (idaligner/CrossCutAligner.java): iterate diagonals d = i+j so every
     cell on a diagonal is independent — the dependency-free order that
-    vectorizes (the same wavefront the Pallas MSA kernel uses). Identity
+    vectorizes (the same wavefront the MSA fill uses). Identity
     needs NO traceback: each cell packs (score | rstart | deletions) in
     one int64 and, with the query consumed globally,
       columns = qlen + D,  M = (score + D + qlen) / 2  (unit scores),
@@ -609,7 +609,7 @@ class QuantumIDAligner:
     """Sparse active-set glocal aligner (idaligner/QuantumAligner.java
     role: "sparse matrix traversal with quantum teleportation" — jumps
     between high-scoring regions across unexplored gaps, traceback-free
-    bit-packed cells, adaptive bandwidth). The TPU-repo re-design keeps
+    bit-packed cells, adaptive bandwidth). The device re-design keeps
     the three defining ideas and drops the Java pointer machinery:
 
       - ACTIVE SET: each row evaluates only a sorted set of live

@@ -1,11 +1,11 @@
 """Exact k-mer counting — device extraction + host-merged spectrum.
 
-TPU-native redesign of the counting half of kmer/KmerTableSet.java (the
+Device-native redesign of the counting half of kmer/KmerTableSet.java (the
 LoadThread scan :397-484 + HashArray1D increment): instead of a mutable
 hash table, each batch's canonical k-mers are sorted on device and reduced
 to (unique, count) runs; batches merge into a global sorted spectrum on the
 host. Sorting replaces atomics — deterministic, collision-free, and maps
-onto the TPU's fast sort/reduce primitives (the same observation SURVEY.md
+onto the device's fast sort/reduce primitives (the same observation SURVEY.md
 §7.3 makes: the reference's own BBMap Block index is the sorted design).
 
 Canonicalization matches the loader exactly: kmer windows with len >= k
@@ -45,10 +45,7 @@ def sort_reduce(keys):
 
     Compaction is a second STABLE sort that partitions run-boundary
     rows to the front (carrying the key and its position), not a
-    scatter: TPU random-access scatter runs at ~7M updates/s and
-    dominated this function 50:1 (353 ms vs 6 ms for the sorts,
-    slope-measured on v5e), while a bitonic sort pass is ~6 ms.
-    Counts fall out of adjacent boundary positions."""
+    scatter. Counts fall out of adjacent boundary positions."""
     s = jnp.sort(keys)
     n = s.shape[0]
     boundary = jnp.concatenate(
@@ -83,18 +80,10 @@ def sort_reduce(keys):
 def count_batch(bases, lengths, k: int):
     """Counting for one batch -> host (values, counts) arrays.
 
-    On CPU hosts the sort-reduce runs via np.unique (host introsort
-    measured ~6x XLA-CPU sort for this workload); on TPU the whole
-    pipeline stays on device (sort_reduce) because shipping 19 MB of
-    keys across the host link per batch costs more than the slower
-    on-device bitonic sort. Both produce identical (values, counts)."""
-    import jax
-
-    if jax.devices()[0].platform != "cpu":
-        keys = batch_kmers_jnp(jnp.asarray(bases), jnp.asarray(lengths), k)
-        values, counts, n_runs = sort_reduce(keys)
-        n = int(n_runs)
-        return np.asarray(values[:n]), np.asarray(counts[:n])
+    The device extracts the canonical k-mers; the sort-reduce runs on
+    the host via np.unique, which measured faster end to end than a
+    device-resident spectrum on the GPU and than the XLA sort on the
+    CPU (PERF.md)."""
     keys = np.asarray(
         batch_kmers_jnp(jnp.asarray(bases), jnp.asarray(lengths), k)
     )
@@ -116,9 +105,7 @@ def _merge_spectra(spec_keys, spec_counts, batch_keys):
     shapes mean the reduced run array is still M rows of concatenated
     input, so the per-batch sort_reduce (a 1-op M sort plus a 3-op M
     stable partition) was pure overhead on top of the same-size combined
-    sort. Removing it cut the accumulate:count ratio from 2.10x to 1.09x
-    (slope-measured on v5e, tools/exp_khist2.py; BASELINE.md round-4
-    khist row)."""
+    sort."""
     all_k = jnp.concatenate([spec_keys, batch_keys])
     all_c = jnp.concatenate([
         spec_counts,
@@ -146,163 +133,6 @@ def _merge_spectra(spec_keys, spec_counts, batch_keys):
         jnp.where(live, counts, 0),
         n_runs,
     )
-
-
-@partial(jax.jit, static_argnames=("k",))
-def _accumulate_batch(bases, lengths, spec_keys, spec_counts, k):
-    """Fused per-batch spectrum accumulate: extract + merge + slice back
-    to the carry capacity, one dispatch. n_runs may exceed the capacity
-    (the caller grows and retries; the sliced arrays are then invalid
-    and discarded)."""
-    keys = batch_kmers_jnp(bases, lengths, k)
-    nk, nc, n_runs = _merge_spectra(spec_keys, spec_counts, keys)
-    cap = spec_keys.shape[0]
-    return nk[:cap], nc[:cap], n_runs
-
-
-class DeviceSpectrum:
-    """Device-resident exact spectrum: the merged (keys, counts) arrays
-    live on the TPU across batches and only ONE scalar (the unique
-    count) crosses the link per batch. This removes the per-batch
-    spectrum readback cliff (measured 128x: 11.3k reads/s with per-batch
-    pulls vs 1.45M device-only — BENCH_r02 extras); the full spectrum
-    transfers once, at the end, via spectrum(). Capacity doubles on
-    overflow (one recompile per power of two, ScheduleMaker's resize
-    schedule role, kmer/ScheduleMaker.java:16)."""
-
-    def __init__(self, k: int, cap: int = 1 << 21, sync_every: int = 8):
-        self.k = k
-        self.cap = cap
-        self.keys = jnp.full(cap, PAD, jnp.int64)
-        self.counts = jnp.zeros(cap, jnp.int64)
-        self.n = 0
-        #: overflow-sync cadence: the per-batch n_runs scalars stay on
-        #: device for up to sync_every batches so dispatches pipeline
-        #: (each forced pull costs a full link round trip on remote
-        #: harnesses); a checkpointed carry + kept batch refs make a
-        #: LATE overflow exactly replayable after growth
-        self.sync_every = max(1, sync_every)
-        self._pending: list = []  # per-batch n_runs device scalars
-        self._replay: list = []  # (bases, lengths) since the checkpoint
-        self._ckpt = (self.keys, self.counts)
-
-    def _grow(self, need: int | None = None):
-        while True:
-            # cap is ALWAYS derived from the live array (a checkpoint
-            # restore may have rolled the arrays back below self.cap)
-            pad = int(self.keys.shape[0])
-            self.cap = 2 * pad
-            self.keys = jnp.concatenate(
-                [self.keys, jnp.full(pad, PAD, jnp.int64)]
-            )
-            self.counts = jnp.concatenate(
-                [self.counts, jnp.zeros(pad, jnp.int64)]
-            )
-            if need is None or self.cap >= need:
-                return
-
-    def add_batch(self, bases, lengths):
-        """bases [B, L] uint8 (host or device), lengths [B]."""
-        # ONE fused dispatch per batch (extract + sort-reduce + merge +
-        # slice-to-cap); the overflow check syncs only every
-        # sync_every batches, so the link round trip amortizes and the
-        # device pipeline stays full. jnp.asarray keeps device arrays
-        # resident.
-        bases = jnp.asarray(bases)
-        lengths = jnp.asarray(lengths)
-        nk, nc, n_runs = _accumulate_batch(
-            bases, lengths, self.keys, self.counts, self.k,
-        )
-        self.keys, self.counts = nk, nc
-        self._pending.append(n_runs)
-        self._replay.append((bases, lengths))
-        if len(self._pending) >= self.sync_every:
-            self._sync()
-
-    def _sync(self):
-        if not self._pending:
-            return
-        ns = [int(x) for x in self._pending]  # pipelined forced pulls
-        if max(ns) <= self.cap:
-            self.n = ns[-1]
-            self._ckpt = (self.keys, self.counts)
-            self._pending.clear()
-            self._replay.clear()
-            return
-        # late overflow: restore the checkpointed carry (immutable jax
-        # arrays — holding the refs IS the checkpoint), grow past the
-        # largest observed run count, and replay the kept batches
-        self.keys, self.counts = self._ckpt
-        self.cap = int(self.keys.shape[0])
-        replay = self._replay
-        self._pending = []
-        self._replay = []
-        self._grow(need=max(ns))
-        for b, ln in replay:
-            self.add_batch(b, ln)
-        self._sync()
-
-    def flush(self):
-        self._sync()
-
-    def spectrum(self):
-        """One final readback: (sorted int64 keys [n], counts [n])."""
-        self._sync()
-        if getattr(self, "_host", None) is None:
-            self._host = (
-                np.asarray(self.keys[: self.n]),
-                np.asarray(self.counts[: self.n]),
-            )
-        return self._host
-
-    @property
-    def host_keys(self):
-        return self.spectrum()[0]
-
-    @property
-    def host_counts(self):
-        return self.spectrum()[1]
-
-    @property
-    def n_unique(self):
-        self._sync()
-        return self.n
-
-    def histogram(self, hist_max: int) -> np.ndarray:
-        """On-device histogram finalization: only [hist_max+1] int64
-        returns to the host (khist= never pays the spectrum transfer)."""
-        self._sync()
-
-        @partial(jax.jit, static_argnames=("hm",))
-        def hist(counts, n, hm):
-            live = jnp.arange(counts.shape[0]) < n
-            cl = jnp.clip(counts, 0, hm)
-            # compare-sum bincount in [hm+1, chunk] tiles (scatter-free)
-            bins = jnp.arange(hm + 1, dtype=jnp.int64)[:, None]
-            CH = 1 << 16
-            C = counts.shape[0]
-            pad = (-C) % CH
-            clp = jnp.pad(cl, (0, pad))
-            lvp = jnp.pad(live, (0, pad))
-
-            def step(acc, x):
-                cc, ll = x
-                acc = acc + jnp.sum(
-                    (cc[None, :] == bins) & ll[None, :], axis=1,
-                    dtype=jnp.int64,
-                )
-                return acc, None
-
-            acc, _ = jax.lax.scan(
-                step,
-                jnp.zeros(hm + 1, jnp.int64),
-                (clp.reshape(-1, CH), lvp.reshape(-1, CH)),
-            )
-            return acc
-
-        h = np.asarray(hist(self.counts, self.n, hist_max)).copy()
-        h[0] = 0
-        return h
 
 
 class KmerSpectrum:

@@ -22,9 +22,9 @@ Lookup is a pure device function. Two interchangeable structures:
     Deterministic, simple; the reference's own BBMap Block index is the
     same sorted-array idea (align2/Block.java:18).
   HashKmerIndex — open-addressed, linearly-probed table in flat arrays,
-    keys split into int32 hi/lo lanes so TPU gathers stay 32-bit; probe
+    keys split into int32 hi/lo lanes so gathers stay 32-bit; probe
     depth is fixed at build time so the query unrolls into a handful of
-    gather+compare steps (the TPU-native HashArray analog,
+    gather+compare steps (the device-native HashArray analog,
     kmer/HashArray.java:22).
 
 Both return the stored id (>0) or 0 for miss, per query position.
@@ -383,7 +383,7 @@ def _mix64(h: np.ndarray) -> np.ndarray:
 class HashKmerIndex:
     """Open-addressed, linear-probe hash table in flat device arrays.
 
-    Keys are stored as separate int32 hi/lo lanes (TPU gathers stay 32-bit)
+    Keys are stored as separate int32 hi/lo lanes (gathers stay 32-bit)
     plus an int32 id lane; empty slots have id == 0. `max_probe` is the
     longest probe sequence that occurred at build, so the device query is a
     statically-unrolled loop of `max_probe + 1` gather+compare steps.
@@ -481,8 +481,8 @@ class HashKmerIndex:
         """Pure jit-able lookup: query int64 [...] -> id int32 [...].
 
         cap and max_probe must be static (python ints) for unrolling.
-        NOTE: each probe step costs 3 gather ops; prefer BucketKmerIndex on
-        TPU, where gather ops dominate compile time and memory traffic.
+        NOTE: each probe step costs 3 gather ops; BucketKmerIndex needs
+        fewer.
         """
         q = query.astype(jnp.uint64)
         h = q
@@ -511,7 +511,7 @@ class HashKmerIndex:
 class BucketKmerIndex:
     """Bucketed hash table: one row-gather fetches all candidates.
 
-    TPU-native replacement for probe chains: keys hash to one of `nb`
+    Device-native replacement for probe chains: keys hash to one of `nb`
     buckets of BUCKET slots; a lookup is exactly TWO gather ops (key rows,
     id rows) regardless of load, with the match selected by a gather-free
     masked sum (at most one slot can match a given key). This is the
@@ -533,8 +533,7 @@ class BucketKmerIndex:
         """Wide buckets; with pack=True and keys fitting 47 bits (k<=23
         incl. the length-tag bit) the layout is key48|id16 in one plane:
         ONE [.., 16] int64 row-gather per lookup instead of two [.., 8]
-        gathers — measured 2.2x the lookup rate on a v5e (bench: gather
-        variants a vs c). Callers using the static unpacked lookup_jnp
+        gathers. Callers using the static unpacked lookup_jnp
         must keep pack=False."""
         n = len(keys)
         B = BucketKmerIndex.BUCKET

@@ -19,7 +19,7 @@ Instead of a sequential scan, positions are computed independently:
   len[i]  = i - lastN[i]
 where lastN[i] is the most recent undefined position <= i. This reproduces
 the sequential loop exactly (including the N->'A' forward behavior and the
-rkmer reset) while being a pure, batched function — the TPU-native shape.
+rkmer reset) while being a pure, batched function — the device-native shape.
 
 Both a numpy host version (oracle, index building) and a jnp device
 version (read-scan hot path) are provided and tested for equality.
@@ -131,8 +131,7 @@ def rolling_kmers_jnp(codes, k: int):
     Returns (fwd int64 [B,L], rkm int64 [B,L], runlen int32 [B,L]).
 
     Uses log-doubling window combines (O(log k) shifted-OR steps instead of
-    k) — the small compiled graph matters on TPU where int64 ops are
-    emulated. The reference's rkmer reset-at-N (rolling register zeroed,
+    k): a small compiled graph. The reference's rkmer reset-at-N (rolling register zeroed,
     BBDukProcessorS:1549) is reproduced by masking the low 2*(k - runlen)
     bits of the plain reverse-complement window: exactly the positions at
     or before the last undefined base.

@@ -282,11 +282,12 @@ def bytes_to_words(keys: np.ndarray, W: int) -> np.ndarray:
 
 def count_batchw_exact(bases: np.ndarray, lengths: np.ndarray, k: int):
     """Exact W-word counting for one batch: returns (keys 'S8W' sorted,
-    counts int64). On TPU the whole extract+sort+reduce runs on device
-    (count_batchw_device); host fallback uses the native radix sort."""
-    import jax
+    counts int64). Where core/backend.py's device_kmer62 choice says so
+    the whole extract+sort+reduce runs on device (count_batchw_device);
+    otherwise the host's native radix sort counts."""
+    from ..core import backend
 
-    if jax.devices()[0].platform == "tpu":
+    if backend.choices().device_kmer62:
         return count_batchw_device(bases, lengths, k)
     words, rwords, runlen = rolling_kmersw_np(bases, k)
     i_idx = np.arange(bases.shape[1])[None, :]
@@ -319,7 +320,7 @@ def count_batchw_exact(bases: np.ndarray, lengths: np.ndarray, k: int):
 class WordSpectrum:
     """Exact W-word k-mer spectrum: sorted byte keys + counts, mergeable
     batches (KmerTableSetU analog; sorted arrays instead of HashArrayU
-    probe chains — the TPU/host-idiomatic layout)."""
+    probe chains — the device/host-idiomatic layout)."""
 
     def __init__(self, k: int):
         self.k = k

@@ -9,8 +9,9 @@ the host -> pull winner walk rows).  This module collapses the device
 half to ONE dispatch and ONE pull per batch:
 
   1. ungapped scoreNoIndels on every candidate site (ops/score_ungapped)
-  2. SPECULATIVE banded DP fill (Pallas wavefront on TPU, XLA scan on
-     CPU) on the top-`dp_top` candidates per read by seed votes — chosen
+  2. SPECULATIVE banded DP fill (ops/msa_cuda.msa_fill_tb: the CUDA
+     wavefront kernel on the GPU, the XLA scan on the CPU) on the
+     top-`dp_top` candidates per read by seed votes — chosen
      on the host from clustering output, so no ungapped-score round-trip
      is needed; the reference's maxImperfectScore gate
      (MultiStateAligner11ts.java:2293-2304) is applied IN-GRAPH when
@@ -20,9 +21,8 @@ half to ONE dispatch and ONE pull per batch:
      lowest-task-index lexsort)
   4. traceback walk over ONLY the compacted DP-improved winners (a
      static `wcap` cap; the walk's per-step random access is the fused
-     step's dominant term — walking all filled tasks measured 2.8M
-     gather rows/batch ≈ 50 ms at the ~50M rows/s access wall, while
-     the consumers only ever read the DP winners' rows).  Cap overflow
+     step's dominant term, and the consumers only ever read the DP
+     winners' rows).  Cap overflow
      raises a flag and the host redoes that batch on the staged path.
 
 Everything the host ladder needs comes back in one device_get: the
@@ -44,8 +44,8 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from .msa import msa_fill, msa_walk
-from .msa_pallas import msa_fill_pallas
+from .msa import msa_walk
+from .msa_cuda import msa_fill_tb
 from .score_ungapped import score_no_indels
 
 NEG = -(1 << 30)
@@ -53,24 +53,22 @@ NEG = -(1 << 30)
 
 @partial(
     jax.jit,
-    static_argnames=("L", "W", "K", "cls_shapes", "pl", "wcap"),
+    static_argnames=("L", "W", "K", "cls_shapes", "wcap"),
 )
 def fused_map_step(
-    L: int, W: int, K: int, cls_shapes, pl: bool, wcap: int,
+    L: int, W: int, K: int, cls_shapes, wcap: int,
     task_reads, task_lens, refwins, slot_map, dp_args,
 ):
     """One-dispatch map phase.  Static: L read width, W ungapped window
-    width, K slots/read, cls_shapes tuple of (Wc, Sc, tile) per active
-    DP class, pl = use the Pallas fill, wcap = walked winners cap per
-    class.
+    width, K slots/read, cls_shapes tuple of (Wc, Sc) per active DP
+    class, wcap = walked winners cap per class.
 
     task_reads [T, L] u8, task_lens [T] i32, refwins [T, W] u8 (4-filled
     outside the reference), slot_map [B, K] i32 task index per read slot
     (-1 pad).  dp_args: per active class a tuple
     (idx [Sc] i32 task index (>=T pad), slotflat [Sc] i32 b*K+k (B*K
     pad), live [Sc] bool, maximp [Sc] i32, reads [Sc, L] u8, lens [Sc]
-    i32, refmain (refp when pl else refs), vert/horiz/floor/subfloor
-    [Sc] i32 (XLA fill limits; unused under pl)).
+    i32, refs [Sc, Wc] u8).
 
     Returns (eff [T] i32, win_task [B] i32, win_score [B] i32,
     second [B] i32, win_used [B] bool, win_cls [B] i32, win_pos [B] i32,
@@ -97,18 +95,9 @@ def fused_map_step(
         flat >= 0, ug[jnp.clip(flat, 0, max(T - 1, 0))], jnp.int32(NEG)
     )
     per_cls = []
-    for (Wc, Sc, tile), args in zip(cls_shapes, dp_args):
-        (idx, slotflat, live, maximp, reads_c, lens_c, refmain,
-         vert, horiz, floor, subfloor) = args
-        if pl:
-            bs, bc, bst, planes = msa_fill_pallas(
-                L, Wc, reads_c, lens_c, refmain, tile=tile, traceback=True
-            )
-        else:
-            bs, bc, bst, planes = msa_fill(
-                L, Wc, False, True, reads_c, lens_c, refmain,
-                jnp.full(Sc, Wc, i32), vert, horiz, floor, subfloor,
-            )
+    for (Wc, Sc), args in zip(cls_shapes, dp_args):
+        idx, slotflat, live, maximp, reads_c, lens_c, refs_c = args
+        bs, bc, bst, planes = msa_fill_tb(L, Wc, reads_c, lens_c, refs_c)
         idxc = jnp.clip(idx, 0, max(T - 1, 0))
         ug_c = ug[idxc]
         # maxImperfectScore gate in-graph: an ungapped-resolved site
@@ -141,7 +130,7 @@ def fused_map_step(
     ops_subs = []
     nst_subs = []
     for ci, (planes, lens_c, bc_c, bst_c) in enumerate(per_cls):
-        Wc, Sc, _tile = cls_shapes[ci]
+        Wc, Sc = cls_shapes[ci]
         rowi = jnp.clip(jnp.where(win_cls == ci, win_pos, 0), 0, Sc - 1)
         win_bc = jnp.where(win_cls == ci, bc_c[rowi], win_bc)
         # compact this class's winners (ascending read id — the host
@@ -149,8 +138,8 @@ def fused_map_step(
         mask = win_cls == ci
         # a class can never have more walked winners than filled lanes:
         # cap per class at Sc (the wide-window classes have tiny Sc but
-        # thousands of walk steps — walking wcap=512 padded lanes there
-        # measured ~20+ ms of pure padding)
+        # thousands of walk steps, so walking wcap padded lanes there
+        # would be pure padding)
         wc_c = min(wcap, Sc)
         overflow = overflow | (mask.sum() > wc_c)
         bsel = jnp.clip(
@@ -158,9 +147,8 @@ def fused_map_step(
         )
         lane = jnp.clip(win_pos[bsel], 0, Sc - 1)
         # pre-gather the winner lanes' traceback planes ONCE (D x wcap
-        # row slices), then run the walk in its fast arange-lane form —
-        # a per-step gather with arbitrary lane indices lowers to a
-        # generalized gather measured 4-8x slower per row
+        # row slices), then run the walk in its arange-lane form instead
+        # of a per-step gather with arbitrary lane indices
         wplanes = planes[:, lane, :]
         ops_s, nst_s = msa_walk(
             L, Wc, wplanes, lens_c[lane], bc_c[lane], bst_c[lane]

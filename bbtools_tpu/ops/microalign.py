@@ -1,7 +1,7 @@
 """Micro-aligner: lightweight alignment of reads against a tiny reference
 (phiX-style side channel).
 
-TPU-native re-design of aligner/MicroIndex3.java (indexRef :113-151,
+Device-native re-design of aligner/MicroIndex3.java (indexRef :113-151,
 map :165-237) + MicroAligner3.java (map :67-92, quickAlign :156-190) +
 SideChannel4.java (:24-135). The reference maps each read by scanning its
 k-mers until the first index hit, derives a single candidate (offset,

@@ -1,4 +1,4 @@
-"""Batched banded affine-gap DP — the MultiStateAligner11ts kernel, TPU-native.
+"""Batched banded affine-gap DP — the MultiStateAligner11ts kernel, on the device.
 
 Re-design of align2/MultiStateAligner11ts.fillLimitedX (:128-610) /
 fillUnlimited (:643-860) as an anti-diagonal wavefront: MS depends on

@@ -76,10 +76,10 @@ def overlap_counts_jnp(a, b_rc, alens, blens, min_insert0: int, n_inserts: int):
     counts mismatches (N vs base mismatches, N vs N matches-but-uncounted),
     olen is the overlapLength.
 
-    TPU-shaped: b_rc is RIGHT-JUSTIFIED once (the only gather), after
+    Device-shaped: b_rc is RIGHT-JUSTIFIED once (the only gather), after
     which mate position j for insert `ins` sits at column i + L - ins for
     EVERY read — so the insert scan is pure static-window slices and
-    masked reductions on the VPU, no per-step gathers. (The reference's
+    masked reductions, no per-step gathers. (The reference's
     per-pair pointer walk, BBMergeOverlapper.mateByOverlapRatio, has no
     such shared-shift structure; this layout is what makes the insert
     loop vectorize.)
@@ -126,7 +126,7 @@ def overlap_counts_jnp(a, b_rc, alens, blens, min_insert0: int, n_inserts: int):
 def right_justify_np(b_rc: np.ndarray, blens: np.ndarray, L: int) -> np.ndarray:
     """Host-side right-justification: b_rj[:, L-1-t] = b_rc[:, blen-1-t]
     (identical to the device formulation in overlap_counts_jnp). Done on
-    the host so the TPU path never pays a per-element device gather."""
+    the host so the device path never pays a per-element device gather."""
     b_rc = np.asarray(b_rc)
     blens = np.asarray(blens)
     if b_rc.shape[1] == L and (blens == L).all():
@@ -138,8 +138,7 @@ def right_justify_np(b_rc: np.ndarray, blens: np.ndarray, L: int) -> np.ndarray:
 
 def right_justify_jnp(b_rc, blens, L: int):
     """Device right-justification via log-shifts: 8 static shifted
-    selects instead of a per-element gather (the TPU random-access
-    engine runs ~50M rows/s; this is pure VPU work). Bit-equal to
+    selects instead of a per-element gather. Bit-equal to
     right_justify_np (leading columns replicate column 0, matching its
     clipped-source semantics)."""
     import jax.numpy as jnp
@@ -154,41 +153,6 @@ def right_justify_jnp(b_rc, blens, L: int):
         j += 1
     i_idx = jnp.arange(L, dtype=jnp.int32)[None, :]
     return jnp.where(i_idx < s, b_rc[:, :1], x)
-
-
-def _justify_and_scan(a, b_rc, alens, blens, min_insert0: int,
-                      n_inserts: int):
-    from functools import partial
-
-    import jax
-
-    from .overlap_pallas import overlap_counts_pallas
-
-    @partial(jax.jit, static_argnames=("m0", "ni"))
-    def run(a, b_rc, alens, blens, m0, ni):
-        b_rj = right_justify_jnp(b_rc, blens, a.shape[1])
-        return overlap_counts_pallas(
-            a, b_rj, alens, blens, m0, ni, pre_justified=True
-        )
-
-    return run(a, b_rc, alens, blens, min_insert0, n_inserts)
-
-
-def overlap_counts(a, b_rc, alens, blens, min_insert0: int, n_inserts: int):
-    """Backend dispatcher: fused Pallas kernel on TPU (one HBM pass per
-    tile, right-justify fused in-graph), XLA insert scan elsewhere.
-    Bit-identical results. Accepts numpy or jax arrays."""
-    from .overlap_pallas import use_pallas
-
-    if use_pallas():
-        import jax.numpy as jnp
-
-        return _justify_and_scan(
-            jnp.asarray(np.asarray(a)), jnp.asarray(np.asarray(b_rc)),
-            jnp.asarray(np.asarray(alens)), jnp.asarray(np.asarray(blens)),
-            min_insert0, n_inserts,
-        )
-    return overlap_counts_jnp(a, b_rc, alens, blens, min_insert0, n_inserts)
 
 
 def overlap_counts_quality_np(
@@ -725,21 +689,17 @@ def mate_by_overlap_ratio_jnp(
     """Device mirror of mate_by_overlap_ratio_np: the per-insert host
     loop becomes a lax.scan over the (reversed) insert axis with [B]
     carries, and the bit-exact sequential-f32 increment tables resolve
-    through the VMEM lane-table lookup (ops/lane_table.py) instead of
-    per-element gathers. Identical results (same f32 op order).
+    through one gather each. Identical results (same f32 op order).
 
     good_f/bad_f ([B, D] f32 planes from overlap_counts_quality_jnp)
     switch it to mateByOverlapRatioJava_WithQualities, exactly as in the
     np version."""
     import jax
 
-    from .lane_table import lookup as table_lookup, pack_table
-
     f32 = jnp.float32
     B0, D = good_c.shape
-    # pad B to a lane multiple and fold [B] carries into [B/128, 128]
-    # tiles: 1-D vectors waste most of each VPU op (measured ~6 ms of
-    # scan overhead at B=8192; 2-D carries cut the per-step cost)
+    # pad B to a multiple of 128 and fold [B] carries into [B/128, 128]
+    # tiles
     Bp = ((B0 + 127) // 128) * 128
     pad = Bp - B0
 
@@ -765,8 +725,8 @@ def mate_by_overlap_ratio_jnp(
         padded(min_overlap, 4) if np.ndim(min_overlap) else min_overlap
     )
     B = Bp
-    gt2 = jnp.asarray(pack_table(incr_table(g_incr)))
-    bt2 = jnp.asarray(pack_table(incr_table(b_incr)))
+    gt = jnp.asarray(incr_table(g_incr))
+    bt = jnp.asarray(incr_table(b_incr))
     mo0 = jnp.broadcast_to(jnp.asarray(min_overlap0), (B,)).astype(jnp.int64)
     mo = jnp.broadcast_to(jnp.asarray(min_overlap), (B,)).astype(jnp.int64)
     mo_eff = jnp.maximum(4, jnp.maximum(mo0, mo))
@@ -795,8 +755,8 @@ def mate_by_overlap_ratio_jnp(
         b_all = bad_f.astype(f32).T.reshape(D, R2, 128)
         bz_all = (bad_f == f32(0.0)).T.reshape(D, R2, 128)
     else:
-        g_all = table_lookup(gt2, good_c).T.reshape(D, R2, 128)  # f32
-        b_all = table_lookup(bt2, bad_c).T.reshape(D, R2, 128)
+        g_all = jnp.take(gt, good_c).T.reshape(D, R2, 128)  # f32
+        b_all = jnp.take(bt, bad_c).T.reshape(D, R2, 128)
         bz_all = (bad_c == 0).T.reshape(D, R2, 128)
     ol_all = olen.T.astype(f32).reshape(D, R2, 128)
     bad_all = bad_c.T.reshape(D, R2, 128)
@@ -983,9 +943,6 @@ def overlap_and_mate(a, b_rc, alens, blens, min_insert0_col: int,
     sequential-order quality scan."""
     import jax
 
-    from .overlap_pallas import overlap_counts_pallas, use_pallas
-
-    pallas = use_pallas()
     with_q = aq is not None
 
     @partial(
@@ -997,14 +954,7 @@ def overlap_and_mate(a, b_rc, alens, blens, min_insert0_col: int,
     )
     def run(a, b_rc, alens, blens, mo0, mo, aqv, bqv, m0c, ni, mi0, mi,
             maxr, msr, marg, off, em, col):
-        if pallas:
-            b_rj = right_justify_jnp(b_rc, blens, a.shape[1])
-            good, bad, ol = overlap_counts_pallas(
-                a, b_rj, alens, blens, m0c, ni, pre_justified=True
-            )
-        else:
-            good, bad, ol = overlap_counts_jnp(a, b_rc, alens, blens,
-                                               m0c, ni)
+        good, bad, ol = overlap_counts_jnp(a, b_rc, alens, blens, m0c, ni)
         good_f = bad_f = None
         if with_q:
             good_f, bad_f, _bad_int, _ol = _overlap_counts_quality(
@@ -1072,9 +1022,7 @@ def expected_mismatches_jnp(a, b_rc, aq, bq, alens, blens, overlap):
     """Device mirror of expected_mismatches_np: per-read alignment via
     log-shifts, bit-exact sequential f32 sum via a lax.scan over t (the
     np loop's t-order; full-length scan is exact because masked steps
-    add +0.0f). pc4 lookups ride the VMEM lane table."""
-    from .lane_table import lookup as table_lookup, pack_table
-
+    add +0.0f)."""
     f32 = jnp.float32
     B, L = a.shape
     overlap = jnp.asarray(overlap)
@@ -1082,9 +1030,9 @@ def expected_mismatches_jnp(a, b_rc, aq, bq, alens, blens, overlap):
     blens = jnp.asarray(blens)
     istart = jnp.where(overlap <= blens, 0, overlap - blens)
     jstart = jnp.where(overlap <= alens, alens - overlap, 0)
-    pc4t = jnp.asarray(pack_table(PROB_CORRECT4))
-    pa4 = table_lookup(pc4t, jnp.minimum(aq.astype(jnp.int32), 59))
-    pb4 = table_lookup(pc4t, jnp.minimum(bq.astype(jnp.int32), 59))
+    pc4 = jnp.asarray(PROB_CORRECT4)
+    pa4 = jnp.take(pc4, jnp.minimum(aq.astype(jnp.int32), 59))
+    pb4 = jnp.take(pc4, jnp.minimum(bq.astype(jnp.int32), 59))
     a2 = _left_shift_rows(a.astype(jnp.int32), istart, 4)
     b2 = _left_shift_rows(b_rc.astype(jnp.int32), jstart, 4)
     pa2 = _left_shift_rows(pa4, istart, 0.0)
@@ -1124,8 +1072,6 @@ def probability_jnp(a, b_rc, aq, bq, alens, blens, insert):
     thresholds are >= 1e-6-scale and both values sit on the same side.
     (The test asserts exact equality for normal values and
     flushed-zero for subnormal oracle values.)"""
-    from .lane_table import lookup as table_lookup, pack_table
-
     f32 = jnp.float32
     B, L = a.shape
     insert = jnp.asarray(insert)
@@ -1133,9 +1079,9 @@ def probability_jnp(a, b_rc, aq, bq, alens, blens, insert):
     blens = jnp.asarray(blens)
     istart = jnp.where(insert <= blens, 0, insert - blens)
     jstart = jnp.where(insert >= blens, 0, blens - insert)
-    pc4t = jnp.asarray(pack_table(PROB_CORRECT4))
-    pa4 = table_lookup(pc4t, jnp.minimum(aq.astype(jnp.int32), 59))
-    pb4 = table_lookup(pc4t, jnp.minimum(bq.astype(jnp.int32), 59))
+    pc4 = jnp.asarray(PROB_CORRECT4)
+    pa4 = jnp.take(pc4, jnp.minimum(aq.astype(jnp.int32), 59))
+    pb4 = jnp.take(pc4, jnp.minimum(bq.astype(jnp.int32), 59))
     a2 = _left_shift_rows(a.astype(jnp.int32), istart, 4)
     b2 = _left_shift_rows(b_rc.astype(jnp.int32), jstart, 4)
     pa2 = _left_shift_rows(pa4, istart, 0.0)

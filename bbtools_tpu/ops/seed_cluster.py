@@ -3,8 +3,8 @@
 The reference's quickMap seed walk (align2/BBIndex.findAdvanced :433:
 per key fetch the Block site list, offset-shift, heap-merge, sweep-count
 votes) ran as vectorized HOST numpy in rounds 1-2 (models/bbmap.py
-candidates_for_batch) — the identified host half of config #3 (VERDICT
-r2 #4). This module moves it on-device:
+candidates_for_batch) — the host half of config #3. This module moves
+it on-device:
 
   1. per-key site counts: two gathers into the CSR `starts` plane
   2. ragged expansion to flat (site, owner) rows with a STATIC cap,

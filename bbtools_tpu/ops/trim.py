@@ -9,7 +9,7 @@ trim everything (left=0, right=len).
 Float32 accumulation order matters for bit-parity, so the device version is
 a `lax.scan` along the read (batched over the read axis) rather than a
 cumsum reformulation — the scan reproduces the sequential rounding exactly
-and still vectorizes across the batch on the VPU.
+and still vectorizes across the batch.
 
 N semantics: a base takes nprob = max(min(avg*1.1, 1), 0.75) when the raw
 byte is 'N' or q < 1 (TrimRead.java:364,377).

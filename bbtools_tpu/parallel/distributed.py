@@ -5,7 +5,7 @@ The reference's distributed story is MPI scaffolding that never shipped
 program, `initialize()` joins the cluster (jax.distributed), and
 `global_mesh()` lays a (dp, tp) mesh over ALL devices so the shard_map
 pipelines in parallel/sharded_index.py run unchanged — XLA routes psum
-over ICI within a host and DCN across hosts.
+over NVLink within a host and the network across hosts.
 
 On a single host (this dev environment) `initialize()` is a no-op and
 the mesh covers local devices, so every code path is exercised by the
@@ -161,8 +161,8 @@ def global_spectrum(keys, counts):
 
 def global_mesh(tp: int | None = None):
     """(dp, tp) mesh over all devices (local + remote). tp defaults to
-    the per-host device count so tensor-parallel collectives stay on ICI
-    and only the dp axis crosses DCN."""
+    the per-host device count so tensor-parallel collectives stay on NVLink
+    and only the dp axis crosses the network."""
     import jax
     from jax.sharding import Mesh
     import numpy as np

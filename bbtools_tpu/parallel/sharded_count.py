@@ -169,37 +169,17 @@ def make_sharded_fill_walk(mesh: Mesh, R: int, Cc: int):
     """Production multi-chip BBMap DP stage (bbmap tpshards=N): the banded
     fill (fillUnlimited semantics) PLUS the fused traceback walk, tasks
     sharded on dp. The reference parallelizes this per worker thread
-    (align2/AbstractMapThread batch loop); here every chip fills its slab
-    of DP tasks and the walk ops ride back sharded. fn(reads [T,L] u8,
-    lens [T] i32, refs [T,Cc] u8, vert/horiz/floor/subfloor [T] i32) ->
-    (best_score, best_col, best_state, ops [T, R+Cc] u8, nsteps [T]).
-    T must divide by the dp size (Pallas path additionally needs the
-    per-shard slab to be a tile multiple — callers pad to dp*128 on TPU).
+    (align2/AbstractMapThread batch loop); here every device fills its
+    slab of DP tasks and the walk ops ride back sharded. fn(reads [T,L]
+    u8, lens [T] i32, refs [T,Cc] u8) -> (best_score, best_col,
+    best_state, ops [T, R+Cc] u8, nsteps [T]). T must divide by the dp
+    size.
     """
     from ..ops import msa as msa_mod
-    from ..ops.msa_pallas import msa_fill_pallas, use_pallas
+    from ..ops.msa_cuda import msa_fill_tb
 
-    pallas = use_pallas()
-
-    def step(reads, lens, refs, vert, horiz, floor, subfloor):
-        if pallas:
-            # kernel ref layout ([B, Cc + 2(R+2)], sentinel 97 pads) built
-            # in-graph so it shards with the tasks
-            PADW = R + 2
-            refp = jnp.full(
-                (reads.shape[0], Cc + 2 * PADW), 97, jnp.uint8
-            )
-            refp = jax.lax.dynamic_update_slice(refp, refs, (0, PADW))
-            tile = min(128, reads.shape[0])
-            bs, bc, bst, planes = msa_fill_pallas(
-                R, Cc, reads, lens, refp, tile=tile, traceback=True
-            )
-        else:
-            ref_lens = jnp.full(reads.shape[0], Cc, jnp.int32)
-            bs, bc, bst, planes = msa_mod.msa_fill(
-                R, Cc, False, True, reads, lens, refs, ref_lens,
-                vert, horiz, floor, subfloor,
-            )
+    def step(reads, lens, refs):
+        bs, bc, bst, planes = msa_fill_tb(R, Cc, reads, lens, refs)
         ops, nst = msa_mod.msa_walk(R, Cc, planes, lens, bc, bst)
         return bs, bc, bst, ops, nst
 
@@ -209,42 +189,10 @@ def make_sharded_fill_walk(mesh: Mesh, R: int, Cc: int):
         shard_map(
             step,
             mesh=mesh,
-            in_specs=(
-                P("dp", None), P("dp"), P("dp", None),
-                P("dp", None), P("dp", None), P("dp"), P("dp"),
-            ),
+            in_specs=(P("dp", None), P("dp"), P("dp", None)),
             out_specs=(
                 P("dp"), P("dp"), P("dp"), P("dp", None), P("dp"),
             ),
-            check_vma=False,
-        )
-    )
-
-
-def sharded_mm_lookup_step(mesh: Mesh, k: int, mink: int, Kp: int):
-    """Column-sharded MXU k-mer matcher (ops/mm_match.py) on the
-    (dp, tp) mesh: `keymat [Kp, Dp]` and `prio [1, Dp]` shard their
-    column axis over tp (each chip holds 1/tp of the raw-key columns and
-    runs its one-hot matmul locally), queries shard over dp; the
-    first-insertion-wins winner is a single pmin over tp of the local
-    best (rank<<16|id) words — the same combine the reference's WAYS
-    table split resolves with locks (kmer/KmerTableSet.java:273-285).
-    Dp must divide by the tp size (MMKmerIndex pads columns)."""
-    from ..ops.mm_match import mm_best_jnp, mm_decode_best
-
-    def step(keymat, prio, queries):
-        best = mm_best_jnp(keymat, prio, k, mink, Kp, queries)
-        best = jax.lax.pmin(best, "tp")
-        return mm_decode_best(best)
-
-    from jax import shard_map
-
-    return jax.jit(
-        shard_map(
-            step,
-            mesh=mesh,
-            in_specs=(P(None, "tp"), P(None, "tp"), P("dp", None)),
-            out_specs=P("dp", None),
             check_vma=False,
         )
     )

@@ -1,13 +1,13 @@
 """Sharded k-mer index + the multi-chip BBDuk step.
 
-TPU-native descendant of the reference's kmer%WAYS table sharding
+Device-native descendant of the reference's kmer%WAYS table sharding
 (kmer/KmerTableSet.java:273-285, bbduk/BBDukIndexMod.java:506 routing):
 keys route to shard `key % n_shards` at build; each device owns one shard
 as an independent open-addressed table. At query time every device probes
 its own shard with the (dp-replicated) query keys and the partial results
 combine with a psum over the tp axis — a miss contributes 0 and exactly
 one shard can hit, so the sum IS the select. No all-to-all of queries is
-needed; the collective rides ICI.
+needed; the collective rides the device interconnect (NVLink).
 
 The full step (scan + trim decision + stat reduction) is expressed with
 shard_map over a (dp, tp) mesh so XLA sees the whole program and can fuse
@@ -82,8 +82,8 @@ def make_sharded_kscan(mesh: Mesh, cfg: KScanConfig, sidx: ShardedKmerIndex,
     psum over tp (KScanConfig.tp_shards routing in ops/bbduk_scan._lookup).
     Outputs are exactly kscan_combined's, so BBDuk's host-side trim/stat
     logic is unchanged and outputs stay byte-identical at any device
-    count. This is the tool-level multi-chip path VERDICT r2 asked for:
-    the kmer%WAYS design of kmer/KmerTableSet.java:273-285 riding ICI."""
+    count. This is the tool-level multi-device path: the kmer%WAYS design of
+    kmer/KmerTableSet.java:273-285 across devices."""
     from functools import partial as _partial
 
     from jax import shard_map
@@ -93,8 +93,7 @@ def make_sharded_kscan(mesh: Mesh, cfg: KScanConfig, sidx: ShardedKmerIndex,
 
     n_tp = mesh.shape["tp"]
     assert n_tp == sidx.n_shards
-    scfg = replace(cfg, tp_shards=n_tp, nb=sidx.nb, packed=False,
-                   lane=None, mxu=None, join=None)
+    scfg = replace(cfg, tp_shards=n_tp, nb=sidx.nb, packed=False)
 
     def step(keys_tbl, ids_tbl, bases, lengths):
         table = (keys_tbl[0], ids_tbl[0])  # this device's shard
@@ -150,8 +149,8 @@ def sharded_bbduk_step(mesh: Mesh, cfg: KScanConfig, sidx: ShardedKmerIndex):
         part = jnp.where(eligible & mine, part, 0)
         full = jax.lax.psum(part, "tp")  # exactly one shard hits
         nhits = (full > 0).sum(axis=1, dtype=jnp.int32)
-        # compare-sum bincount: TPU scatter runs ~14M updates/s, a
-        # [256, B] compare+reduce is pure VPU work
+        # compare-sum bincount: a [256, B] compare+reduce instead of a
+        # scatter
         clipped = jnp.minimum(nhits, 255)
         hist = jnp.sum(
             clipped[None, :] == jnp.arange(256, dtype=jnp.int32)[:, None],

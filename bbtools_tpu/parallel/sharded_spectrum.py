@@ -2,19 +2,19 @@
 
 The reference scales its k-mer tables by hash-sharding: every thread
 owns the kmers with `kmer % WAYS == way` and no locks are ever needed
-(kmer/KmerTableSet.java:273-285). The TPU translation: every DEVICE on
+(kmer/KmerTableSet.java:273-285). The device translation: every DEVICE on
 the mesh owns `kmer % n_dp == d`. Each batch is data-parallel over
 reads; extracted kmers are exchanged to their owner with ONE
 `lax.all_to_all`, and each owner merges its received stream into its
 device-resident sorted run array with the scatter-free sort-reduce
 (ops/kmer_count._merge_spectra). The global histogram is a local
 bincount + `psum` — no spectrum readback, identical bytes to the
-single-device DeviceSpectrum path.
+single-device host spectrum (ops/kmer_count.KmerSpectrum).
 
 Shapes are static: per-batch exchange capacity `cap_ex` per
 (source, target) pair and per-device spectrum capacity `cap` carry
 overflow flags; the host grows (doubles) and retries on overflow, the
-same resize schedule DeviceSpectrum uses (kmer/ScheduleMaker.java:16).
+role of the reference's resize schedule (kmer/ScheduleMaker.java:16).
 """
 
 from __future__ import annotations
@@ -91,7 +91,7 @@ def _sharded_hist(keys_c, counts_c, *, mesh, hist_max):
 
 
 class ShardedSpectrum:
-    """KmerSpectrum/DeviceSpectrum-compatible facade over the mesh."""
+    """KmerSpectrum-compatible facade over the mesh."""
 
     def __init__(self, mesh: Mesh, k: int, cap: int = 1 << 18):
         self.mesh = mesh

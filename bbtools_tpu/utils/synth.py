@@ -3,7 +3,7 @@
 The reference's correctness harness is synthesize -> run -> grade
 (SURVEY.md §4.1: synth/RandomReads3.java encodes the true origin in the
 read header; align2/GradeSamFile.java:26 parses it back). This module
-implements that loop for the TPU framework: reads drawn from a reference
+implements that loop for the framework: reads drawn from a reference
 with configured SNP/indel rates, origin encoded in the header as
   name_scaf<idx>_pos<start0>_strand<0|1>_insert<len>
 plus generators for random genomes and mutated genomes (variant truth).

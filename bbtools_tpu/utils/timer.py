@@ -4,7 +4,7 @@ PhaseTimer mirrors the reference's shared/Timer.java usage pattern —
 per-phase splits printed in the tool summary ("xtime"/"showtimes"
 output of BBDuk/BBMap) — and `device_profile` wraps a block in
 jax.profiler tracing (profile=t flags), writing a TensorBoard-loadable
-trace directory, the TPU-native analog of the reference's JVM
+trace directory, the device-native analog of the reference's JVM
 instrumentation.
 """
 

@@ -89,7 +89,7 @@ def test_long_insertion_maps(genome):
 
 
 def test_synth_indel_grading(genome):
-    """VERDICT item 3 'Done' criterion: SNP+indel synthetic reads grade
+    """SNP+indel synthetic reads grade
     >= 97% strict of mapped."""
     tmp, ref, idx = genome
     reads = random_reads(ref, 300, read_len=130, snp_rate=0.005,
@@ -144,8 +144,8 @@ def test_pacbio_preset_long_reads(genome):
     assert len(body) == 6  # one record per read: NOT chunked
 
     # plain bbmap on the same FASTA chunks at fastareadlen=500:
-    # different (but still correct) output shape — the VERDICT item-3
-    # distinguishing behavior
+    # different (but still correct) output shape — the distinguishing
+    # behavior
     cfg2 = BBMapConfig(in1=str(fa), out=str(tmp / "ill.sam"),
                        batch_reads=64)
     BBMap(cfg2, index=idx_illumina).run()
@@ -330,7 +330,7 @@ def test_bbmap_inline_coverage_matches_pileup(tmp_path):
 
 def test_device_seed_cluster_equals_host(tmp_path):
     """ops/seed_cluster.seed_candidates_jnp == the host numpy
-    candidates_for_batch: same values, same order (the VERDICT r2 #4
+    candidates_for_batch: same values, same order (the
     device-ization of BBMap's host half)."""
     import jax.numpy as jnp
     import numpy as np

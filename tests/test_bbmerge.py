@@ -404,29 +404,42 @@ def test_overlap_counts_vs_original_semantics():
         np.testing.assert_array_equal(got[2][:, d], valid.sum(1))
 
 
-def test_overlap_counts_pallas_equals_xla():
-    """The fused Pallas insert scan (interpret mode on CPU) must equal the
-    XLA scan bit-for-bit, including N codes, unequal lengths, and a batch
-    size that is not a multiple of the kernel tile."""
-    import numpy as np
+@pytest.mark.parametrize("use_quality", [True, False])
+def test_device_merge_equals_host_merge(tmp_path, use_quality):
+    """The device graph that the GPU runs (insert scan, mate selection,
+    entropy, efilter) writes the same merged reads and histogram as the
+    host path, with and without quality-weighted scoring."""
+    from bbtools_tpu.core import backend
+    from bbtools_tpu.models.bbmerge import main as bbmerge_main
 
-    from bbtools_tpu.ops.overlap_pallas import overlap_counts_pallas
-
-    rng2 = np.random.default_rng(7)
-    B, L = 77, 51
-    a = rng2.integers(0, 5, (B, L)).astype(np.uint8)
-    b = rng2.integers(0, 5, (B, L)).astype(np.uint8)
-    alens = rng2.integers(10, L + 1, B).astype(np.int32)
-    blens = rng2.integers(10, L + 1, B).astype(np.int32)
-    for min0, D in ((5, 2 * L - 8), (12, 40), (L + 3, 9)):
-        ref = [np.asarray(x) for x in overlap_counts_jnp(
-            jnp.asarray(a), jnp.asarray(b), jnp.asarray(alens),
-            jnp.asarray(blens), min0, D)]
-        got = [np.asarray(x) for x in overlap_counts_pallas(
-            jnp.asarray(a), jnp.asarray(b), jnp.asarray(alens),
-            jnp.asarray(blens), min0, D, interpret=True)]
-        for r, g in zip(ref, got):
-            np.testing.assert_array_equal(r, g)
+    rng2 = np.random.default_rng(5)
+    genome = rng2.integers(0, 4, 4000)
+    comp = np.array([3, 2, 1, 0])
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    with open(tmp_path / "r1.fq", "wb") as f1, open(tmp_path / "r2.fq", "wb") as f2:
+        for i in range(300):
+            p = int(rng2.integers(0, 3600))
+            ins = genome[p : p + int(rng2.integers(120, 280))]
+            r1 = acgt[ins[:151]].tobytes()
+            r2 = acgt[comp[ins[::-1]][:151]].tobytes()
+            q1 = bytes(rng2.integers(40, 74, len(r1)).astype(np.uint8))
+            q2 = bytes(rng2.integers(40, 74, len(r2)).astype(np.uint8))
+            f1.write(b"@p%d /1\n" % i + r1 + b"\n+\n" + q1 + b"\n")
+            f2.write(b"@p%d /2\n" % i + r2 + b"\n+\n" + q2 + b"\n")
+    outs = []
+    for device in (False, True):
+        d = tmp_path / str(device)
+        d.mkdir()
+        with backend.override(device_merge=device):
+            bbmerge_main([
+                f"in1={tmp_path / 'r1.fq'}", f"in2={tmp_path / 'r2.fq'}",
+                f"out={d / 'm.fq'}", f"outu={d / 'u.fq'}",
+                f"ihist={d / 'ihist.txt'}", f"usequality={use_quality}",
+                "efilter=6", "ow=t",
+            ])
+        outs.append([(d / n).read_bytes() for n in ("m.fq", "u.fq", "ihist.txt")])
+    assert outs[0][0]  # some pairs merged
+    assert outs[0] == outs[1]
 
 
 def test_right_justify_jnp_matches_np():

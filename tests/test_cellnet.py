@@ -102,7 +102,7 @@ def test_reference_bbnet_parses():
 def test_bbmerge_nn_gate_discriminates():
     """The net gate must reject wrong-insert overlap signatures (many
     mismatches) and pass long clean overlaps — and nn=t must actually
-    change merge decisions (VERDICT item 9 criterion)."""
+    change merge decisions."""
     import os
 
     import numpy as np

@@ -1,4 +1,5 @@
 import numpy as np
+import pytest
 
 from bbtools_tpu.ops.kmer_count import (
     KmerSpectrum,
@@ -23,6 +24,62 @@ def test_count_batch_matches_oracle():
     vn, cn = count_batch_np(bases, lengths, k)
     np.testing.assert_array_equal(v, vn)
     np.testing.assert_array_equal(c, cn)
+
+
+@pytest.mark.parametrize("k", [5, 17, 31])
+@pytest.mark.parametrize("n_prob", [0.0, 0.05])
+def test_count_batch_across_k_and_n_rate(k, n_prob):
+    """kmercountexact's k<=31 counting path (device extraction, host
+    np.unique) equals the host oracle for short and full-width k, with
+    and without undefined bases breaking the windows."""
+    g = np.random.default_rng(k * 7 + int(n_prob * 100))
+    bases = g.integers(0, 4, (48, 120)).astype(np.uint8)
+    bases[g.random(bases.shape) < n_prob] = 4
+    bases[::5] = bases[0]  # repeats: counts above 1
+    lengths = g.integers(k - 1, 121, 48).astype(np.int32)
+    v, c = count_batch(bases, lengths, k)
+    vn, cn = count_batch_np(bases, lengths, k)
+    np.testing.assert_array_equal(v, vn)
+    np.testing.assert_array_equal(c, cn)
+
+
+@pytest.mark.parametrize("hist_max", [1, 3, 100])
+def test_spectrum_histogram_clamps_to_last_bin(hist_max):
+    """KmerSpectrum.histogram: bin c counts distinct k-mers seen c times,
+    counts past hist_max land in the last bin, bin 0 stays empty."""
+    spec = KmerSpectrum(11)
+    spec.add_batch(np.array([3, 5, 9], np.int64), np.array([1, 4, 2], np.int64))
+    spec.add_batch(np.array([5, 7], np.int64), np.array([3, 1], np.int64))
+    counts = {3: 1, 5: 7, 7: 1, 9: 2}
+    want = np.zeros(hist_max + 1, np.int64)
+    for c in counts.values():
+        want[min(c, hist_max)] += 1
+    want[0] = 0
+    np.testing.assert_array_equal(spec.histogram(hist_max), want)
+
+
+@pytest.mark.parametrize("n_reads", [0, 1, 64])
+def test_sort_reduce_matches_unique(n_reads):
+    """sort_reduce (the sharded spectrum's per-batch reduce) equals
+    np.unique on the same keys, PAD rows excluded, including an all-PAD
+    batch."""
+    import jax.numpy as jnp
+
+    from bbtools_tpu.ops.kmer_count import PAD, batch_kmers_jnp, sort_reduce
+
+    g = np.random.default_rng(n_reads)
+    bases = g.integers(0, 4, (max(n_reads, 1), 90)).astype(np.uint8)
+    lengths = np.full(len(bases), 90 if n_reads else 0, np.int32)
+    keys = batch_kmers_jnp(jnp.asarray(bases), jnp.asarray(lengths), 21)
+    values, counts, n = sort_reduce(keys)
+    n = int(n)
+    hk = np.asarray(keys)
+    wv, wc = np.unique(hk[hk != PAD], return_counts=True)
+    assert n == len(wv)
+    np.testing.assert_array_equal(np.asarray(values[:n]), wv)
+    np.testing.assert_array_equal(np.asarray(counts[:n]), wc)
+    assert (np.asarray(values[n:]) == PAD).all()
+    assert (np.asarray(counts[n:]) == 0).all()
 
 
 def test_spectrum_merge():
@@ -234,66 +291,3 @@ def test_native_radix_count_matches_numpy():
     wc = np.diff(np.append(starts, len(rs)))
     np.testing.assert_array_equal(vals, rs[starts])
     np.testing.assert_array_equal(counts, wc)
-
-
-def test_device_spectrum_matches_host_spectrum():
-    """DeviceSpectrum (device-resident fused accumulate, incl. a
-    capacity-growth retry) equals the host KmerSpectrum exactly."""
-    import numpy as np
-
-    from bbtools_tpu.ops.kmer_count import (
-        DeviceSpectrum,
-        KmerSpectrum,
-        count_batch_np,
-    )
-
-    g = np.random.default_rng(3)
-    ds = DeviceSpectrum(31, cap=1 << 10)  # tiny: forces growth mid-run
-    ks = KmerSpectrum(31)
-    for bi in range(3):
-        bases = g.integers(0, 4, (64, 120)).astype(np.uint8)
-        bases[::3] = bases[0]
-        lengths = np.full(64, 120, np.int32)
-        lengths[7] = 40
-        ds.add_batch(bases, lengths)
-        v, c = count_batch_np(bases, lengths, 31)
-        ks.add_batch(v, c)
-    ks.flush()
-    dk, dc = ds.spectrum()
-    assert (dk == ks.keys).all()
-    assert (dc == ks.counts).all()
-    assert (ds.histogram(100) == ks.histogram(100)).all()
-    assert ds.cap > 1 << 10  # growth actually happened
-
-
-def test_device_spectrum_adversarial_late_overflow():
-    """Deferred-sync replay correctness under the worst case: with
-    sync_every=4, every batch brings mostly-new keys so the capacity
-    overflows LATE inside each sync window (on unsynced batches whose
-    n_runs scalars are still on device). The checkpoint/replay must
-    reproduce the host spectrum exactly, repeatedly, across several
-    consecutive growth-and-replay cycles."""
-    import numpy as np
-
-    from bbtools_tpu.ops.kmer_count import (
-        DeviceSpectrum,
-        KmerSpectrum,
-        count_batch_np,
-    )
-
-    g = np.random.default_rng(11)
-    ds = DeviceSpectrum(31, cap=1 << 9, sync_every=4)  # 512-row carry
-    ks = KmerSpectrum(31)
-    for bi in range(10):
-        # ~1.6k distinct kmers per batch -> overflow nearly every window
-        bases = g.integers(0, 4, (16, 120)).astype(np.uint8)
-        lengths = np.full(16, 120, np.int32)
-        ds.add_batch(bases, lengths)
-        v, c = count_batch_np(bases, lengths, 31)
-        ks.add_batch(v, c)
-    ks.flush()
-    dk, dc = ds.spectrum()
-    assert (dk == ks.keys).all()
-    assert (dc == ks.counts).all()
-    assert ds.cap >= len(ks.keys)
-    assert (ds.histogram(64) == ks.histogram(64)).all()

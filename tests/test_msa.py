@@ -175,58 +175,46 @@ class TestTraceback:
             assert ndiag + nins == rlens[b]
 
 
-def test_pallas_fill_matches_wavefront():
-    """Pallas MSA kernel (interpret mode) is bit-equal to the XLA path."""
-    import jax.numpy as jnp
-
-    from bbtools_tpu.ops.msa_pallas import msa_fill_pallas, prepare_refp
-
-    B, R, Cc = 8, 48, 80
-    reads = np.zeros((B, R), np.uint8)
-    rlens = np.array([30 + 2 * i for i in range(B)], np.int32)
-    refs = rng.integers(0, 4, (B, Cc)).astype(np.uint8)
+def _dp_inputs(B, R, Cc, seed, n_rate=0.0, repeat=False):
+    """Reads drawn from their windows with substitutions, indels and
+    (optionally) N calls, lengths spread over [R//2, R]. With repeat the
+    window's second half copies its first, so two columns tie."""
+    g = np.random.default_rng(seed)
+    refs = g.integers(0, 4, (B, Cc)).astype(np.uint8)
+    if repeat:
+        h = Cc // 2
+        refs[:, h : 2 * h] = refs[:, :h]
+    reads = np.full((B, R), 4, np.uint8)
+    rlens = g.integers(R // 2, R + 1, B).astype(np.int32)
     for b in range(B):
         rl = int(rlens[b])
-        reads[b, :rl] = refs[b, 5 : 5 + rl]
-        m = rng.random(rl) < 0.06
-        reads[b, :rl][m] = (reads[b, :rl][m] + rng.integers(1, 4, m.sum())) % 4
-    clens = np.full(B, Cc, np.int32)
-    ms, mc, mst = msa_fill_batch(
-        reads, rlens, refs, clens, np.zeros(B, np.int64), prune=False
-    )
-    refp = prepare_refp(refs, R)
-    ps, pc, pst = msa_fill_pallas(
-        R, Cc, jnp.asarray(reads), jnp.asarray(rlens), jnp.asarray(refp),
-        tile=8, interpret=True,
-    )
-    np.testing.assert_array_equal(ms, np.asarray(ps))
-    np.testing.assert_array_equal(mc, np.asarray(pc))
-    np.testing.assert_array_equal(mst, np.asarray(pst))
+        src = list(refs[b, 3 : 3 + rl + 8])
+        if b % 3 == 1:
+            del src[rl // 2 : rl // 2 + 3]  # deletion in the read
+        elif b % 3 == 2:
+            src[rl // 3 : rl // 3] = [0, 1, 2]  # insertion in the read
+        row = np.array(src[:rl], np.uint8)
+        m = g.random(rl) < 0.06
+        row[m] = (row[m] + g.integers(1, 4, m.sum())) % 4
+        row[g.random(rl) < n_rate] = 4
+        reads[b, :rl] = row
+    refs[g.random((B, Cc)) < n_rate] = 4
+    return reads, rlens, refs
 
 
-def test_pallas_traceback_matches_wavefront():
-    """Pallas traceback planes walk to the same ops as the XLA fill."""
+def _xla_fill_tb(R, Cc, reads, rlens, refs):
     import jax.numpy as jnp
 
-    from bbtools_tpu.ops.msa import msa_fill, msa_walk, prepare_limits_np
     from bbtools_tpu.ops import msa_constants as C
-    from bbtools_tpu.ops.msa_pallas import msa_fill_pallas, prepare_refp
+    from bbtools_tpu.ops.msa import msa_fill, prepare_limits_np
 
-    B, R, Cc = 8, 32, 56
-    reads = np.zeros((B, R), np.uint8)
-    rlens = np.array([24 + i for i in range(B)], np.int32)
-    refs = rng.integers(0, 4, (B, Cc)).astype(np.uint8)
-    for b in range(B):
-        rl = int(rlens[b])
-        reads[b, :rl] = refs[b, 4 : 4 + rl]
-        m = rng.random(rl) < 0.08
-        reads[b, :rl][m] = (reads[b, :rl][m] + rng.integers(1, 4, m.sum())) % 4
+    B = len(rlens)
     clens = np.full(B, Cc, np.int32)
-    maxgain = (rlens.astype(np.int64) - 1) * C.POINTS_MATCH2 + C.POINTS_MATCH
     vert, horiz, floor, _ = prepare_limits_np(
         reads, rlens, refs, clens, np.zeros(B, np.int64)
     )
-    xs, xc, xst, xpl = msa_fill(
+    maxgain = (rlens.astype(np.int64) - 1) * C.POINTS_MATCH2 + C.POINTS_MATCH
+    out = msa_fill(
         R, Cc, False, True,
         jnp.asarray(reads), jnp.asarray(rlens), jnp.asarray(refs),
         jnp.asarray(clens),
@@ -234,47 +222,123 @@ def test_pallas_traceback_matches_wavefront():
         jnp.asarray(floor.astype(np.int32)),
         jnp.asarray((-2 * maxgain).astype(np.int32)),
     )
-    refp = prepare_refp(refs, R)
-    ps, pc, pst, ppl = msa_fill_pallas(
-        R, Cc, jnp.asarray(reads), jnp.asarray(rlens), jnp.asarray(refp),
-        tile=8, interpret=True, traceback=True,
+    return [np.asarray(x) for x in out]
+
+
+@pytest.mark.parametrize("B,R,Cc", [(8, 48, 80), (5, 20, 60), (4, 151, 175)])
+def test_msa_fill_tb_plane_layout_matches_fill(B, R, Cc):
+    """The wrapper's in-graph limits, dtypes and plane layout reproduce
+    msa_fill(prune=False, traceback=True) given host-prepared limits."""
+    from bbtools_tpu.ops.msa_cuda import msa_fill_tb
+
+    reads, rlens, refs = _dp_inputs(B, R, Cc, seed=B + R, n_rate=0.02)
+    want = _xla_fill_tb(R, Cc, reads, rlens, refs)
+    got = [np.asarray(x) for x in msa_fill_tb(R, Cc, reads, rlens, refs)]
+    assert got[3].shape == (R + Cc - 1, B, R + 1) and got[3].dtype == np.uint8
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+
+
+@pytest.fixture(scope="module")
+def msa_emu_lib(tmp_path_factory):
+    """The CUDA kernel's own source compiled for the host against the
+    warp emulation in tests/cuda_emu."""
+    import ctypes
+    import os
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    kdir = os.path.join(os.path.dirname(here), "bbtools_tpu", "ops", "cuda")
+    so = str(tmp_path_factory.mktemp("emu") / "msa_emu.so")
+    subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+         "-Wno-unknown-pragmas", "-I", kdir,
+         "-I", os.path.join(here, "cuda_emu"),
+         os.path.join(here, "cuda_emu", "msa_fill_emu.cpp"), "-o", so],
+        check=True,
     )
-    np.testing.assert_array_equal(np.asarray(xs), np.asarray(ps))
-    np.testing.assert_array_equal(np.asarray(xc), np.asarray(pc))
-    np.testing.assert_array_equal(np.asarray(xst), np.asarray(pst))
-    xo, xn = msa_walk(R, Cc, xpl, jnp.asarray(rlens), xc, xst)
-    po, pn = msa_walk(R, Cc, ppl, jnp.asarray(rlens), pc, pst)
-    np.testing.assert_array_equal(np.asarray(xn), np.asarray(pn))
-    np.testing.assert_array_equal(np.asarray(xo), np.asarray(po))
+    return ctypes.CDLL(so)
 
 
-def test_pallas_fill_big_tile():
-    """The multi-lane-tile configuration (tile=32, B not a tile multiple
-    pre-padding) matches the XLA path — covers the adaptive-tile sizes
-    msa_fill_tb_auto picks on TPU."""
-    import jax.numpy as jnp
+def _emu_fill(lib, R, Cc, reads, rlens, refs):
+    import ctypes
 
-    from bbtools_tpu.ops.msa_pallas import msa_fill_pallas, prepare_refp
+    from bbtools_tpu.ops.msa import col0_scores
 
-    B, R, Cc = 32, 40, 72
-    rng2 = np.random.default_rng(11)
-    reads = np.zeros((B, R), np.uint8)
-    rlens = (24 + rng2.integers(0, R - 24, B)).astype(np.int32)
-    refs = rng2.integers(0, 4, (B, Cc)).astype(np.uint8)
-    for b in range(B):
-        rl = int(rlens[b])
-        reads[b, :rl] = refs[b, 3 : 3 + rl]
-        m = rng2.random(rl) < 0.1
-        reads[b, :rl][m] = (reads[b, :rl][m] + rng2.integers(1, 4, m.sum())) % 4
+    B = len(rlens)
+    reads = np.ascontiguousarray(reads, np.uint8)
+    refs = np.ascontiguousarray(refs, np.uint8)
+    rlens = np.ascontiguousarray(rlens, np.int32)
     clens = np.full(B, Cc, np.int32)
-    ms, mc, mst = msa_fill_batch(
-        reads, rlens, refs, clens, np.zeros(B, np.int64), prune=False
+    col0 = np.ascontiguousarray(col0_scores(R), np.int32)
+    s, c, st = (np.zeros(B, np.int32) for _ in range(3))
+    planes = np.zeros((R + Cc - 1, B, R + 1), np.uint8)
+    p = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
+    rc = lib.msa_fill_emulate(
+        p(reads), p(rlens), p(refs), p(clens), p(col0),
+        ctypes.c_int(B), ctypes.c_int(R), ctypes.c_int(Cc),
+        p(s), p(c), p(st), p(planes),
     )
-    refp = prepare_refp(refs, R)
-    ps, pc, pst = msa_fill_pallas(
-        R, Cc, jnp.asarray(reads), jnp.asarray(rlens), jnp.asarray(refp),
-        tile=32, interpret=True,
-    )
-    np.testing.assert_array_equal(ms, np.asarray(ps))
-    np.testing.assert_array_equal(mc, np.asarray(pc))
-    np.testing.assert_array_equal(mst, np.asarray(pst))
+    assert rc == 0
+    return [s, c, st, planes]
+
+
+@pytest.mark.parametrize(
+    "B,R,Cc,n_rate,repeat",
+    [(4, 20, 40, 0.0, False), (6, 40, 72, 0.03, False),
+     (9, 64, 70, 0.0, False), (3, 151, 175, 0.01, False),
+     (5, 20, 64, 0.0, True)],
+)
+def test_cuda_msa_kernel_emulated_matches_fill(msa_emu_lib, B, R, Cc, n_rate,
+                                               repeat):
+    """ops/cuda/msa_fill.cuh, run over the host warp emulation, is
+    bit-equal to the XLA fill on scores, columns, states and every plane
+    byte — one, two, three and five rows per lane, B not a multiple of
+    the four warps of a block, and tied final-row scores."""
+    reads, rlens, refs = _dp_inputs(B, R, Cc, seed=R * Cc, n_rate=n_rate,
+                                    repeat=repeat)
+    want = _xla_fill_tb(R, Cc, reads, rlens, refs)
+    got = _emu_fill(msa_emu_lib, R, Cc, reads, rlens, refs)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+
+
+@pytest.mark.parametrize(
+    "platform,R,kernel",
+    [("cpu", 151, False), ("gpu", 151, True), ("gpu", 255, True),
+     ("gpu", 256, False)],
+)
+def test_msa_kernel_choice(monkeypatch, platform, R, kernel):
+    """The CUDA fill runs on the GPU for reads up to 255 bases; longer
+    reads and the CPU take the XLA scan."""
+    from bbtools_tpu.core import backend
+    from bbtools_tpu.ops import msa_cuda
+
+    monkeypatch.setattr(backend, "platform", lambda: platform)
+    assert msa_cuda.use_kernel(R) is kernel
+
+
+@pytest.mark.parametrize(
+    "n,want",
+    [(1, 8), (8, 8), (9, 32), (32, 32), (33, 64), (64, 64), (65, 128),
+     (129, 256)],
+)
+def test_dp_bucket(n, want):
+    from bbtools_tpu.ops.msa_cuda import dp_bucket
+
+    assert dp_bucket(n) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,R,Cc", [(512, 151, 175), (64, 151, 2223)])
+def test_cuda_msa_kernel_on_gpu(gpu, B, R, Cc):
+    """The compiled kernel on the card is bit-equal to the XLA fill."""
+    import jax
+
+    from bbtools_tpu.ops import msa_cuda
+
+    reads, rlens, refs = _dp_inputs(B, R, Cc, seed=B, n_rate=0.01)
+    fill = jax.jit(lambda r, l, f: msa_cuda._fill_cuda(R, Cc, r, l, f))
+    got = [np.asarray(x) for x in fill(reads, rlens, refs)]
+    for w, g in zip(_xla_fill_tb(R, Cc, reads, rlens, refs), got):
+        np.testing.assert_array_equal(w, g)

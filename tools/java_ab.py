@@ -9,7 +9,7 @@ JVM-equipped host:
         --repo /path/to/this/repo --workdir /tmp/ab
 
 For each BASELINE config it synthesizes identical input, runs the Java
-launcher and the TPU-framework CLI with the same flags, and diffs the
+launcher and this framework's CLI with the same flags, and diffs the
 outputs (byte-wise where the contract is bit parity, field-wise for
 formats with cosmetic differences such as SAM @PG lines). Exit code 0 =
 all comparisons pass.
